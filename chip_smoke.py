@@ -4,20 +4,35 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each fatal on failure (non-zero exit, no result line):
-  1. build   — compile every CUDA source of the port (one nvcc per source,
-               all started together) and print the compiler's register report;
-  2. kernel  — hold the DTW kernel against its plain PyTorch version on the
-               card at serving shapes (G=2 groups x 64*15 comps x 150 pool
-               patches, ragged and empty rows), max abs error <= 1e-5;
-  3. serving — the port's SubGNNPipeline.predict at the flagship widths
-               (D=128, 2 layers, all channels, float32) on a synthetic
-               8192-node, average-degree-16 graph: 4 requests of 64 novel
-               15-node subgraphs. Logits must be finite, the kernel's launch
-               count must rise on every request, and one request recomputed
-               by the port on the CPU must agree;
-  4. timings — cold/warm per-request stage timings; the kernel's time
-               against the plain version's at the serving request's own
-               inputs, beside its lower bound on the card.
+  1. build    — compile every CUDA source of the port (one nvcc per source,
+                all started together) and print the compiler's register
+                report;
+  2. kernels  — hold each kernel against its plain PyTorch version on the
+                card: DTW at serving shapes (G=2 groups x 64*15 comps x 150
+                pool patches, ragged and empty rows), max abs error <= 1e-5;
+                segment_matmul (the embedding-table gradient) at the bench's
+                plans (B=1280 bf16 and B=512 fp32, neigh and cc) and three
+                edge cases (every id on one row, only PAD ids, padding
+                tiles), per row |kernel - plain| <= 1e-5 * sum |g| over the
+                row's slots (+ one bf16 ulp of the plain value for bf16);
+  3. serving  — the port's SubGNNPipeline.predict at the flagship widths
+                (D=128, 2 layers, all channels, float32) on a synthetic
+                8192-node, average-degree-16 graph: 4 requests of 64 novel
+                15-node subgraphs. Logits must be finite, the DTW kernel must
+                launch on every request, and one request recomputed by the
+                port on the CPU must agree;
+  4. training — the bench's training step (subgnn_tpu_torch/bench.py) at
+                the flagship widths: 20 bf16 steps at B=1280 (finite losses,
+                every leaf that gets a gradient changes, segment_matmul
+                launched exactly twice per step), with their mpn_edges_per_s;
+                one fp32 step at B=512 against the same step on the CPU
+                (loss rel 1e-4, every gradient leaf atol 1e-4 x max|leaf|);
+                Trainer.fit for 2 epochs on build_training_fixture at the
+                flagship widths (finite val metrics, a top-k checkpoint);
+  5. timings  — cold/warm per-request stage timings; each kernel's time
+                against its plain version's, its lower bound on the card and
+                (segment_matmul) index_add_, at the main path's own inputs.
+Each path's launch counts are zeroed just before it and read just after.
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, and when run outside a checkout of the repository.
@@ -27,7 +42,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
@@ -44,6 +58,11 @@ PEAK_HBM_BYTES = 3.35e12
 DTW_FLOPS_PER_CELL = 8      # max, min, 2 adds, 1 div, 1 sub, 3-way min
 DTW_TOL = 1e-5              # same fp32 operations in the same order
 CPU_GPU_REL_TOL = 1e-3      # float32 sums in another order on each device
+SEG_REL_TOL = 1e-5          # fp32 sums of the same terms in another order
+BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative (8-bit significand)
+STEP_LOSS_RTOL = 1e-4       # one fp32 training step, GPU vs CPU
+STEP_GRAD_TOL = 1e-4        # x max|leaf|, per gradient leaf
+N_BF16_STEPS, BF16_RUNS = 20, 4
 
 N_NODES, AVG_DEGREE = 8192, 16
 N_REQUESTS, REQUEST_SIZE, SUBGRAPH_NODES = 4, 64, 15
@@ -52,18 +71,6 @@ N_REQUESTS, REQUEST_SIZE, SUBGRAPH_NODES = 4, 64, 15
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def flagship_hparams(HParams, seed):
-    return HParams(
-        node_embed_size=128, n_layers=2,
-        n_anchor_patches_N_in=15, n_anchor_patches_N_out=30,
-        n_anchor_patches_pos_in=30, n_anchor_patches_pos_out=60,
-        n_anchor_patches_structure=15, n_triangular_walks=5,
-        random_walk_len=10, linear_hidden_dim_1=64, linear_hidden_dim_2=32,
-        sample_walk_len=25, max_sim_epochs=5, batch_size=64,
-        use_neighborhood=True, use_position=True, use_structure=True,
-        dtype="float32", seed=seed)
 
 
 def grow_subgraph(graph, rng, size):
@@ -135,6 +142,28 @@ def event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def segment_check(E, g, ids, plan, out_rows, out_dtype):
+    """Kernel vs plain on the card: (max abs err, within tolerance). The
+    tolerance per row is SEG_REL_TOL x the sum of |g| over the row's slots
+    (index_add_ of |g|), plus one bf16 ulp of the plain value for bf16."""
+    import torch
+    got = E.segment_matmul(g, plan, out_rows, out_dtype)
+    ref = E.segment_matmul_torch(g, plan, out_rows, out_dtype)
+    absum = torch.zeros(out_rows, g.shape[1], device=g.device).index_add_(
+        0, ids.reshape(-1), g.float().abs())
+    tol = SEG_REL_TOL * absum
+    if out_dtype == torch.bfloat16:
+        tol = tol + ref.float().abs() * BF16_ULP
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    return float(err.max()), bool((err <= tol).all())
+
+
+def plan_stats(ids, plan):
+    return (f"ids {ids.numel()}, tiles {plan.pos.shape[0]}, PAD ids "
+            f"{int((ids == 0).sum())}, table rows {plan.n_rows}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -150,11 +179,25 @@ def main(argv=None) -> int:
     check(Path(subgnn_tpu_torch.__file__).resolve().parents[1] == HERE,
           f"subgnn_tpu_torch imported from {subgnn_tpu_torch.__file__}, "
           f"not from this checkout ({HERE})")
+    from subgnn_tpu_torch.bench import (bench_batch, build_training_fixture,
+                                        card, flagship_hparams)
     from subgnn_tpu_torch.config import HParams, RunConfig
     from subgnn_tpu_torch.data.dataset import initialize_cc_ids
     from subgnn_tpu_torch.models.subgnn import tree_to
     from subgnn_tpu_torch.ops import build
     from subgnn_tpu_torch.ops import dtw as kdtw
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.loop import (Trainer, copy_tree,
+                                             loss_and_grads, make_optimizer,
+                                             mpn_edges_per_step, train_step)
+    from subgnn_tpu_torch.train.plans import neigh_ids_for_batch
+
+    def neigh_ids(batch, anchors):
+        """The batch's neighborhood anchor ids, laid out as its plan."""
+        host = {k: anchors[k].cpu().numpy() for k in ("neigh_int",
+                                                      "neigh_bor")}
+        return torch.as_tensor(neigh_ids_for_batch(
+            host, batch["subgraph_idx"].cpu().numpy()), device=dev)
     from subgnn_tpu_torch.train.runner import SubGNNPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,6 +236,48 @@ def main(argv=None) -> int:
           f"La={La}: max_abs_err={max_abs_err!r} (tol {DTW_TOL})")
     check(max_abs_err <= DTW_TOL, "DTW kernel disagrees with its plain version")
 
+    # segment_matmul at the bench's plans (the training path's own inputs:
+    # the batches of phase 4) and at edge cases
+    t0 = time.perf_counter()
+    benches = {dt: bench_batch(dt, dev, args.seed)
+               for dt in ("float32", "bfloat16")}
+    print(f"[kernel] bench batches built ({time.perf_counter() - t0:.2f}s)")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    seg_err = 0.0
+    D = 128
+    for dt, (_, _, params_b, _, batch_b, anchors_b) in benches.items():
+        rows = params_b["node_embed"].shape[0]
+        tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+        for name, ids, plan in (
+                ("neigh", neigh_ids(batch_b, anchors_b), batch_b["neigh_plan"]),
+                ("cc", batch_b["cc_ids"], batch_b["cc_plan"])):
+            g = torch.randn(ids.numel(), D, generator=gen, device=dev).to(tdt)
+            err, ok = segment_check(E, g, ids, plan, rows, tdt)
+            seg_err = max(seg_err, err)
+            print(f"[kernel] segment_matmul {dt} B={batch_b['cc_ids'].shape[0]}"
+                  f" {name} plan ({plan_stats(ids, plan)}): max_abs_err "
+                  f"{err!r}, within tolerance {ok}")
+            check(ok, f"segment_matmul disagrees with its plain version at "
+                      f"the {dt} {name} plan")
+    rows = 8200
+    edge = {"one_row": np.full(3 * E.TILE_WIDTH + 5, 4242),
+            "only_pad": np.zeros(40 * 16, np.int64),
+            "padding_tiles": np.random.default_rng(args.seed + 1).integers(
+                0, rows, 5000)}
+    for name, ids_np in edge.items():
+        extra = 7 if name == "padding_tiles" else 0
+        plan = E.make_gather_plan(ids_np, rows, E.tiles_needed(ids_np, rows)
+                                  + extra).to(dev)
+        ids = torch.as_tensor(ids_np, device=dev)
+        for tdt in (torch.float32, torch.bfloat16):
+            g = torch.randn(ids.numel(), D, generator=gen, device=dev).to(tdt)
+            err, ok = segment_check(E, g, ids, plan, rows + 8, tdt)
+            seg_err = max(seg_err, err)
+            print(f"[kernel] segment_matmul edge case {name} {tdt} "
+                  f"({plan_stats(ids, plan)}): max_abs_err {err!r}, within "
+                  f"tolerance {ok}")
+            check(ok, f"segment_matmul disagrees at edge case {name}")
+
     # ---------------------------------------------------------- 3. serving
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -203,7 +288,9 @@ def main(argv=None) -> int:
         print(f"[serving] synthetic graph n={graph.n_nodes} "
               f"edges={len(graph.indices) // 2} "
               f"({time.perf_counter() - t0:.2f}s)")
-        hp = flagship_hparams(HParams, args.seed)
+        hp = HParams(**flagship_hparams("float32"), sample_walk_len=25,
+                     max_sim_epochs=5, batch_size=64, use_neighborhood=True,
+                     use_position=True, use_structure=True, seed=args.seed)
         rc = RunConfig(task="synthetic", project_root=root)
         pads = dict(max_n_cc=SUBGRAPH_NODES, max_len_cc=SUBGRAPH_NODES)
 
@@ -291,22 +378,197 @@ def main(argv=None) -> int:
               f"(runs {k1!r}, {k2!r}), plain {plain_ms!r} ms (runs {p1!r}, "
               f"{p2!r}), bound {bound_ms!r} ms, max_abs_err {req_err!r}")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi)
-    record = {"name": "dtw_grouped", "route": "cuda",
-              "source": "subgnn_tpu_torch/csrc/dtw.cu",
-              "replaces": "subgnn_tpu/ops/dtw_pallas.py:25",
-              "launches": launches, "max_abs_err": max_abs_err,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-              "library_ms": None}
-    check(all(isinstance(v, (int, float)) and math.isfinite(v)
-              for k, v in record.items() if k in ("ms", "plain_ms",
-                                                  "bound_ms", "max_abs_err")),
-          f"non-finite kernel record {record}")
-    print(json.dumps({"kernels": [record]}))
+    dtw_record = {"name": "dtw_grouped", "route": "cuda",
+                  "source": "subgnn_tpu_torch/csrc/dtw.cu",
+                  "replaces": "subgnn_tpu/ops/dtw_pallas.py:25",
+                  "launches": launches, "max_abs_err": max_abs_err,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                  "library_ms": None}
+
+    # --------------------------------------------------------- 4. training
+    # 20 bf16 steps at B=1280, timed in runs of 5 (before the CPU recompute
+    # below, whose CPU work would share the host with the launching thread)
+    model, hp, params, state, batch, anchors = benches["bfloat16"]
+    tx = make_optimizer(hp.replace(learning_rate=1e-3))
+    opt_state = tx.init(params)
+    _, _, _, g0 = loss_and_grads(model, tx, params, state, batch, anchors)
+    reached = [bool(g.abs().sum() > 0) for g in g0]
+    before = [x.detach().clone() for x in tx.trainable(params)]
+    del g0
+    per_run = N_BF16_STEPS // BF16_RUNS
+    B, C = batch["cc_ids"].shape[:2]
+    edges_per_run = mpn_edges_per_step(hp, B, C) * per_run
+    losses, run_s = [], []
+    E.segment_matmul.launches = 0
+    for _ in range(BF16_RUNS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_run):
+            loss, _, _ = train_step(model, tx, params, opt_state, state,
+                                    batch, anchors)
+            losses.append(loss)
+        end.record()
+        torch.cuda.synchronize()
+        run_s.append(start.elapsed_time(end) / 1e3)
+    bf16_launches = E.segment_matmul.launches
+    losses = torch.stack(losses).float().cpu().numpy()
+    check(np.isfinite(losses).all(), f"bf16 steps: non-finite loss {losses}")
+    check(bf16_launches == 2 * N_BF16_STEPS,
+          f"bf16 steps: segment_matmul launched {bf16_launches} times in "
+          f"{N_BF16_STEPS} steps, expected {2 * N_BF16_STEPS}")
+    after = tx.trainable(params)
+    unchanged = [i for i, (a, b, r) in enumerate(zip(before, after, reached))
+                 if r and torch.equal(a, b)]
+    check(not unchanged, f"bf16 steps: leaves {unchanged} did not change")
+    i = next(i for i, x in enumerate(after) if x is params["node_embed"])
+    check(reached[i] and not torch.equal(before[i], after[i]),
+          "bf16 steps: the embedding table got no update")
+    rates = [edges_per_run / t for t in run_s]
+    step_ms = float(np.median(run_s)) / per_run * 1e3
+    print(f"[training] bf16 {N_BF16_STEPS} steps B={B}: loss "
+          f"{losses[0]!r} -> {losses[-1]!r}, segment_matmul launches "
+          f"{bf16_launches} (2 per step), {sum(reached)} of {len(reached)} "
+          f"leaves get a gradient and all of them changed; mpn_edges_per_s "
+          f"{float(np.median(rates))!r} (runs of {per_run} steps: {rates!r};"
+          f" first run includes warm-up), {step_ms!r} ms/step")
+    del before
+
+    # one fp32 step at B=512 on the card and on the CPU, same inputs
+    model, hp, params, state, batch, anchors = benches["float32"]
+    tx = make_optimizer(hp)
+    tx.init(params)
+    t0 = time.perf_counter()
+    loss_g, _, _, grads_g = loss_and_grads(model, tx, params, state, batch,
+                                           anchors)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    p_cpu = copy_tree(params, "cpu")
+    tx.init(p_cpu)
+    t0 = time.perf_counter()
+    loss_c, _, _, grads_c = loss_and_grads(
+        model, tx, p_cpu, tree_to(state, "cpu"),
+        {k: v.to("cpu") for k, v in batch.items()},
+        {k: v.cpu() for k, v in anchors.items()})
+    t_cpu = time.perf_counter() - t0
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst = 0.0
+    for gg, gc in zip(grads_g, grads_c):
+        diff = float((gg.cpu() - gc).abs().max())
+        scale = float(gc.abs().max())
+        check(diff <= STEP_GRAD_TOL * scale,
+              f"fp32 step: a gradient leaf differs by {diff!r} (max|leaf| "
+              f"{scale!r})")
+        worst = max(worst, diff / scale if scale else 0.0)
+    print(f"[training] fp32 step B={batch['cc_ids'].shape[0]}: loss GPU "
+          f"{float(loss_g)!r} CPU {float(loss_c)!r} (rel diff {rel!r}, tol "
+          f"{STEP_LOSS_RTOL}); worst gradient leaf diff / max|leaf| "
+          f"{worst!r} over {len(grads_g)} leaves (tol {STEP_GRAD_TOL}); "
+          f"step {t_gpu:.3f}s GPU (first), {t_cpu:.3f}s CPU")
+    check(rel <= STEP_LOSS_RTOL, "fp32 step: GPU loss disagrees with CPU")
+    del p_cpu, grads_c, grads_g
+
+    # Trainer.fit at the flagship widths
+    t0 = time.perf_counter()
+    (fmodel, fhp, fparams, fstate, fdata, fanchors,
+     _) = build_training_fixture(
+        rng_seed=args.seed, n_nodes=N_NODES, n_train=256, n_val=128, C=3,
+        L=16, n_pool=150, device=dev,
+        hp_overrides=dict(flagship_hparams("float32"), batch_size=64,
+                          max_epochs=2))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(fmodel, fhp, ckpt_dir=str(Path(tmp) / "ckpt"),
+                          device=dev)
+        before_fit = E.segment_matmul.launches
+        last = trainer.fit(fparams, fstate, fdata["train"], fdata["val"],
+                           fanchors, seed=args.seed,
+                           log_fn=lambda m: print(f"[training] fit {m}"))
+        fit_launches = E.segment_matmul.launches - before_fit
+        best = trainer.ckpt.best_path
+        check(best is not None and best.exists(),
+              "Trainer.fit wrote no checkpoint")
+        ckpt_bytes = best.stat().st_size
+    seg_launches = E.segment_matmul.launches
+    for k in ("train_loss", "val_loss", "val_micro_f1", "val_acc",
+              "val_auroc"):
+        check(math.isfinite(last[k]), f"Trainer.fit: {k} = {last[k]!r}")
+    check(fit_launches == 2 * trainer.global_step,
+          f"Trainer.fit: {fit_launches} segment_matmul launches in "
+          f"{trainer.global_step} steps")
+    print(f"[training] Trainer.fit 2 epochs x {trainer.global_step // 2} "
+          f"batches of 64: val_micro_f1 {last['val_micro_f1']!r}, val_loss "
+          f"{last['val_loss']!r}, segment_matmul launches {fit_launches}; "
+          f"checkpoint {best.name} ({ckpt_bytes} bytes); "
+          f"{time.perf_counter() - t0:.2f}s")
+
+    # ------------------------------------------------- 5. segment timings
+    _, _, params, _, batch, anchors = benches["bfloat16"]
+    rows = params["node_embed"].shape[0]
+    timed = {}
+    for name, ids, plan in (
+            ("neigh", neigh_ids(batch, anchors), batch["neigh_plan"]),
+            ("cc", batch["cc_ids"], batch["cc_plan"])):
+        g = torch.randn(ids.numel(), D, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        err, ok = segment_check(E, g, ids, plan, rows, torch.bfloat16)
+        check(ok, f"segment_matmul disagrees at the timed {name} inputs")
+        seg_err = max(seg_err, err)
+        flat = ids.reshape(-1)
+
+        def kernel():
+            E.segment_matmul(g, plan, rows, torch.bfloat16)
+
+        def plain():
+            E.segment_matmul_torch(g, plan, rows, torch.bfloat16)
+
+        def library():
+            torch.zeros(rows, D, dtype=torch.float32, device=dev).index_add_(
+                0, flat, g.float())
+
+        p1 = event_ms(plain, 3)
+        k1 = event_ms(kernel, 50)
+        l1 = event_ms(library, 20)
+        l2 = event_ms(library, 20)
+        k2 = event_ms(kernel, 50)
+        p2 = event_ms(plain, 3)
+        T, W = plan.pos.shape
+        n_real = int((plan.local < E.TABLE_BLOCK).sum())
+        n_bytes = (g.numel() * 2 + 2 * T * W * 4 + T * 4 + rows * D * 2)
+        s_bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+        s_ops_ms = n_real * D / PEAK_FP32_FLOPS * 1e3
+        timed[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                           library_ms=min(l1, l2),
+                           bound_ms=max(s_bytes_ms, s_ops_ms),
+                           bound_by=("operations" if s_ops_ms > s_bytes_ms
+                                     else "bytes"))
+        print(f"[timings] segment_matmul bf16 B={batch['cc_ids'].shape[0]} "
+              f"{name} plan ({plan_stats(ids, plan)}, {n_bytes} bytes): "
+              f"kernel {min(k1, k2)!r} ms (runs {k1!r}, {k2!r}), plain "
+              f"{min(p1, p2)!r} ms (runs {p1!r}, {p2!r}), index_add_ "
+              f"{min(l1, l2)!r} ms (runs {l1!r}, {l2!r}), bound "
+              f"{max(s_bytes_ms, s_ops_ms)!r} ms, max_abs_err {err!r}")
+    share = (timed["neigh"]["ms"] + timed["cc"]["ms"]) / step_ms
+    print(f"[timings] segment_matmul share of a bf16 step: "
+          f"{timed['neigh']['ms'] + timed['cc']['ms']!r} ms of {step_ms!r} "
+          f"ms ({share!r}); the ratio kernel/bound at the neigh plan "
+          f"{timed['neigh']['ms'] / timed['neigh']['bound_ms']!r}")
+    seg_record = {"name": "segment_matmul", "route": "cuda",
+                  "source": "subgnn_tpu_torch/csrc/segment_matmul.cu",
+                  "replaces": "subgnn_tpu/ops/embedding.py:162",
+                  "launches": seg_launches, "max_abs_err": seg_err,
+                  **timed["neigh"]}
+
+    print(card())
+    for record in (dtw_record, seg_record):
+        check(all(isinstance(record[k], (int, float))
+                  and math.isfinite(record[k])
+                  for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+              f"non-finite kernel record {record}")
+        check(record["launches"] > 0, f"{record['name']} was not launched "
+                                      f"on its path")
+    print(json.dumps({"kernels": [dtw_record, seg_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from .dropout import KeepMask
+from .dropout import dropout as apply_dropout
+
 
 def _uniform(generator, shape, bound):
     return (torch.rand(shape, generator=generator) * 2 - 1) * bound
@@ -87,12 +90,16 @@ def _single_step(p, x_t):
     return torch.sigmoid(o) * torch.tanh(c)
 
 
-def lstm_forward(params, x, *, aggregator: str = "last"):
-    """x: (B, T, n_features) -> (B, n_features), inference mode (the
-    between-layer dropout of training arrives with the training step)."""
+def lstm_forward(params, x, *, aggregator: str = "last",
+                 dropout: float = 0.0, keep_mask: KeepMask | None = None):
+    """x: (B, T, n_features) -> (B, n_features). In train mode (`keep_mask`
+    given) inverted dropout of rate `dropout` follows every layer but the
+    last (subgnn_tpu/models/lstm.py:168-186)."""
     out = x
     for layer in params["layers"][:-1]:
         out = _bidir_seq(layer, out)
+        if keep_mask is not None and dropout > 0.0:
+            out = apply_dropout(out, dropout, keep_mask)
 
     last = params["layers"][-1]
     if aggregator == "last":

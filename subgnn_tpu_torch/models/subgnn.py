@@ -22,7 +22,10 @@ from torch import nn
 
 from ..config import HParams
 from ..device import resolve_device
+from ..ops.embedding import embedding_gather
 from . import attention as attn
+from .dropout import KeepMask
+from .dropout import dropout as apply_dropout
 from .lstm import init_lstm_params, lstm_forward
 from .mpn import init_mpn_params, mpn_messages, mpn_update, mpn_update_stacked
 
@@ -158,57 +161,86 @@ class SubGNNModel(nn.Module):
         table[0] = 0.0
         return table
 
-    def initialize_cc_embeddings(self, table, cc_ids):
+    def initialize_cc_embeddings(self, table, cc_ids, plan=None):
         """(B, C, L) ids -> (B, C, D) via sum or max INCLUDING pad zeros
         (reference: SubGNN.py:609-622 does not mask; 'max' therefore clips
-        at 0 — quirk preserved)."""
-        embeds = table[cc_ids]                                    # (B,C,L,D)
+        at 0 — quirk preserved). `plan` (ops/embedding.GatherPlan built from
+        exactly cc_ids) routes the table gradient through the plan kernel."""
+        if plan is not None:
+            embeds = embedding_gather(table, cc_ids, plan)        # (B,C,L,D)
+        else:
+            embeds = table[cc_ids]
         if self.hp.cc_aggregator == "sum":
             return embeds.sum(dim=2)
         if self.hp.cc_aggregator == "max":
             return embeds.max(dim=2).values
         raise NotImplementedError(self.hp.cc_aggregator)
 
-    def _struct_anchor_embeds(self, params, table, int_walks, bor_walks):
+    def _struct_anchor_embeds(self, params, table, int_walks, bor_walks,
+                              keep_mask: Optional[KeepMask]):
         """All structure anchor-patch embeddings in one batched LSTM call:
         (n_layers, A_S, W, L) walks -> (emb_int, emb_bor), each
-        (n_layers, A_S, D), the LSTM over each walk summed over walks."""
+        (n_layers, A_S, D), the LSTM over each walk summed over walks.
+        `keep_mask` (train mode) draws the between-layer LSTM dropout."""
         nl, A_S, W, L = int_walks.shape
         walks = torch.cat([int_walks, bor_walks], dim=0)          # (2nl,A,W,L)
         walk_embeds = table[walks.reshape(2 * nl * A_S * W, L)]
         hidden = lstm_forward(params["lstm"], walk_embeds,
-                              aggregator=self.hp.lstm_aggregator)
+                              aggregator=self.hp.lstm_aggregator,
+                              dropout=self.hp.lstm_dropout,
+                              keep_mask=keep_mask)
         emb = hidden.reshape(2 * nl, A_S, W, -1).sum(dim=2)
         return emb[:nl], emb[nl:]
 
     @staticmethod
-    def _batch_norm(p, s, x):
-        """Eval-mode BN with running statistics over the flattened (B*C, D)
-        view incl. padded rows (reference: SubGNN.py:267-290)."""
+    def _batch_norm(p, s, x, *, train: bool):
+        """BN over the flattened (B*C, D) view incl. padded rows (reference:
+        SubGNN.py:267-290). Train mode normalises by the batch statistics
+        and updates the running ones (variance with the unbiased factor
+        B*C/(B*C-1), subgnn_tpu/models/subgnn.py:206-220); eval mode uses
+        the running ones. Returns (y, new_state); the state is detached."""
         B, C, D = x.shape
         flat = x.reshape(B * C, D)
-        y = (flat - s["mean"]) / torch.sqrt(s["var"] + 1e-5) * p["scale"] \
-            + p["bias"]
-        return y.reshape(B, C, D)
+        if train:
+            mean = flat.mean(dim=0)
+            var = flat.var(dim=0, unbiased=False)
+            new_s = {"mean": (0.9 * s["mean"] + 0.1 * mean).detach(),
+                     "var": (0.9 * s["var"] + 0.1 * var * (B * C)
+                             / max(B * C - 1, 1)).detach()}
+        else:
+            mean, var = s["mean"], s["var"]
+            new_s = s
+        y = (flat - mean) / torch.sqrt(var + 1e-5) * p["scale"] + p["bias"]
+        return y.reshape(B, C, D), new_s
 
     # --------------------------------------------------------------- forward
 
     def forward(self, params, state, batch: Dict[str, Any],
                 anchors: Dict[str, Any], *, train: bool = False,
+                keep_mask: Optional[KeepMask] = None,
                 cc_tables: Optional[Dict[str, Any]] = None):
-        """Logits (B, num_classes) float32 for one batch, inference mode.
+        """(logits (B, num_classes) float32, new_state) for one batch.
 
         batch: cc_ids (B,C,L) int64; subgraph_idx (B,) int64; either NP_sim
                (B,C,n_nodes) or the compact keys neigh_sims/pos_in_sims/
-               pos_out_sims (train/sims.py); I_S_sim/B_S_sim (B,C,n_pool).
+               pos_out_sims (train/sims.py); I_S_sim/B_S_sim (B,C,n_pool);
+               optionally cc_plan/neigh_plan (train/plans.py), which route
+               the embedding-table gradient through ops/embedding.
         anchors: layer-major anchor tensors (sampling/anchors.py layouts).
+        train: batch-norm on batch statistics with running-stat updates in
+               new_state, and dropout drawn through `keep_mask`
+               (models/dropout.py), which train mode needs whenever a
+               dropout rate is non-zero.
         cc_tables: 6 per-channel (N, C, D) tables when trainable_cc.
         """
-        if train:
-            raise NotImplementedError(
-                "the training forward (dropout, batch-norm updates) arrives "
-                "with the training step; this port serves")
         hp = self.hp
+        lstm_drop = (hp.use_structure and hp.lstm_dropout > 0
+                     and len(params["lstm"]["layers"]) > 1)
+        if train and keep_mask is None and (hp.lin_dropout > 0 or lstm_drop):
+            raise ValueError("train mode with dropout needs a keep_mask "
+                             "(models/dropout.generator_keep_mask)")
+        if not train:
+            keep_mask = None
         table = self._table(params)
         if hp.dtype == "bfloat16":
             # bf16 activations and matmuls, fp32 master weights; logits
@@ -217,9 +249,11 @@ class SubGNNModel(nn.Module):
         cc_ids = batch["cc_ids"]
         sub_idx = batch["subgraph_idx"]
         B, C, _ = cc_ids.shape
-        bn_state = state.get("bn", {})
+        new_state = dict(state)
+        bn_state = dict(state.get("bn", {}))
 
-        init_cc = self.initialize_cc_embeddings(table, cc_ids)   # (B, C, D)
+        init_cc = self.initialize_cc_embeddings(
+            table, cc_ids, batch.get("cc_plan"))                  # (B, C, D)
         cc_mask = cc_ids[:, :, 0] != PAD_VALUE                    # (B, C)
 
         if hp.use_neighborhood:
@@ -227,7 +261,11 @@ class SubGNNModel(nn.Module):
             n_ids_all = torch.cat(
                 [anchors["neigh_int"][:, sub_idx],
                  anchors["neigh_bor"][:, sub_idx]], dim=-1)       # (L,B,C,A)
-            n_emb_all = table[n_ids_all]
+            neigh_plan = batch.get("neigh_plan")
+            if neigh_plan is not None:
+                n_emb_all = embedding_gather(table, n_ids_all, neigh_plan)
+            else:
+                n_emb_all = table[n_ids_all]
 
         if hp.trainable_cc and cc_tables is not None:
             ch_cc = {k: cc_tables[k][sub_idx] for k in CHANNEL_CC_KEYS}
@@ -240,7 +278,7 @@ class SubGNNModel(nn.Module):
         if hp.use_structure:
             emb_int_all, emb_bor_all = self._struct_anchor_embeds(
                 params, table, anchors["struc_int_walks"],
-                anchors["struc_bor_walks"])
+                anchors["struc_bor_walks"], keep_mask)
 
         def np_sims_gather(anchor_ids):
             # sims[b,c,a] = NP_sim[b, c, anchor_id-1]; jnp clamps
@@ -347,12 +385,14 @@ class SubGNNModel(nn.Module):
             if hp.use_neighborhood:
                 layer_p = params["channels"]["neighborhood"][l]
                 if hp.batch_norm:
-                    N_in = self._batch_norm(
+                    N_in, bn_state[f"neighborhood_{l}_in"] = self._batch_norm(
                         layer_p["bn_in"], bn_state[f"neighborhood_{l}_in"],
-                        N_in)
-                    N_out = self._batch_norm(
-                        layer_p["bn_out"], bn_state[f"neighborhood_{l}_out"],
-                        N_out)
+                        N_in, train=train)
+                    N_out, bn_state[f"neighborhood_{l}_out"] = \
+                        self._batch_norm(
+                            layer_p["bn_out"],
+                            bn_state[f"neighborhood_{l}_out"], N_out,
+                            train=train)
                 outputs[n_outputs_pos:n_outputs_pos] = [N_in, N_out]
 
         all_cc = torch.cat([init_cc] + outputs, dim=-1)          # (B, C, hid)
@@ -366,12 +406,20 @@ class SubGNNModel(nn.Module):
         else:
             sg_embed = attn.masked_sum(all_cc, cc_mask[:, :, None], axis=1)
 
+        # 3-layer head with optional dropout (reference: SubGNN.py:306-310)
         h = params["head"]
         dt = sg_embed.dtype
         x = torch.relu(sg_embed @ h["lin1"]["w"].to(dt) + h["lin1"]["b"].to(dt))
+        if train and hp.lin_dropout > 0:
+            x = apply_dropout(x, hp.lin_dropout, keep_mask)
         x = torch.relu(x @ h["lin2"]["w"].to(dt) + h["lin2"]["b"].to(dt))
-        return (x @ h["lin3"]["w"].to(dt)
-                + h["lin3"]["b"].to(dt)).to(torch.float32)
+        if train and hp.lin_dropout > 0:
+            x = apply_dropout(x, hp.lin_dropout, keep_mask)
+        logits = (x @ h["lin3"]["w"].to(dt)
+                  + h["lin3"]["b"].to(dt)).to(torch.float32)
+        if hp.batch_norm:
+            new_state["bn"] = bn_state
+        return logits, new_state
 
     # ------------------------------------------------------------------ loss
 

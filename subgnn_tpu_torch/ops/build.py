@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"dtw": "dtw.cu"}
+SOURCES = {"dtw": "dtw.cu", "segment_matmul": "segment_matmul.cu"}
 # IEEE division and no fast-math: the kernels stay bit-comparable to their
 # plain PyTorch versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

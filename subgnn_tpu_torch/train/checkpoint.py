@@ -1,8 +1,11 @@
-"""Read checkpoints written by the JAX package.
+"""Checkpoints shared with the JAX package, with top-k retention.
 
 Checkpoints are pickled payloads of numpy trees (subgnn_tpu/train/
-checkpoint.py:18-38): {"params", "state", "opt_state", "meta"}. The port
-serves them by copying matching leaves into its own parameter tree.
+checkpoint.py:18-112): {"params", "state", "opt_state", "meta"}. The port
+writes params and state as numpy trees in the JAX package's layout, so the
+JAX package's loaders and both predict CLIs read a checkpoint the port
+trained; the optimizer state is the port's own (train/loop.py:Adam).
+The port reads checkpoints by copying matching leaves into its own tree.
 Unpickling runs code from the file: load only checkpoints this system wrote.
 """
 from __future__ import annotations
@@ -10,10 +13,35 @@ from __future__ import annotations
 import json
 import pickle
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+
+def to_numpy(tree):
+    """Nested dict/list tree of tensors -> the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree) if tree is not None else None
+
+
+def save_checkpoint(path: str | Path, params, state=None, opt_state=None,
+                    meta: Dict[str, Any] | None = None):
+    payload = {
+        "params": to_numpy(params),
+        "state": to_numpy(state) if state is not None else None,
+        "opt_state": to_numpy(opt_state) if opt_state is not None else None,
+        "meta": meta or {},
+    }
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
 
 
 def load_checkpoint(path: str | Path):
@@ -47,6 +75,48 @@ def load_params_filtered(path: str | Path, current_params, payload=None):
         return cur
 
     return merge(current_params, saved)
+
+
+class TopKCheckpoints:
+    """Keep the best-k checkpoints by a monitored metric (higher is better),
+    with the JAX package's file names (reference PL ModelCheckpoint top-3,
+    SubGNN/train_config.py:144-150)."""
+
+    def __init__(self, ckpt_dir: str | Path, k: int = 3,
+                 monitor: str = "val_micro_f1"):
+        self.dir = Path(ckpt_dir)
+        self.k = k
+        self.monitor = monitor
+        self.kept: List[Tuple[float, Path]] = []
+
+    def maybe_save(self, epoch: int, metrics: Dict[str, float],
+                   params, state=None, opt_state=None,
+                   global_step: int | None = None) -> bool:
+        key = float(metrics.get(self.monitor, float("-inf")))
+        if np.isnan(key):
+            # a NaN monitor must not win best_path (NaN compares False)
+            return False
+        if len(self.kept) >= self.k and key <= min(v for v, _ in self.kept):
+            return False
+        fname = (f"epoch={epoch}-val_micro_f1={metrics.get('val_micro_f1', 0):.2f}"
+                 f"-val_acc={metrics.get('val_acc', 0):.2f}"
+                 f"-val_auroc={metrics.get('val_auroc', 0):.2f}.ckpt")
+        path = self.dir / fname
+        meta = {"epoch": epoch, **{k: float(v) for k, v in metrics.items()
+                                   if isinstance(v, (int, float))}}
+        if global_step is not None:
+            meta["global_step"] = int(global_step)
+        save_checkpoint(path, params, state, opt_state, meta=meta)
+        self.kept.append((key, path))
+        self.kept.sort(key=lambda t: -t[0])
+        while len(self.kept) > self.k:
+            _, worst = self.kept.pop()
+            worst.unlink(missing_ok=True)
+        return True
+
+    @property
+    def best_path(self) -> Path | None:
+        return self.kept[0][1] if self.kept else None
 
 
 def dump_json(path: str | Path, obj: Dict[str, Any]):

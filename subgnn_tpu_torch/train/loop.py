@@ -1,0 +1,385 @@
+"""Training loop: the per-batch step, Adam, evaluation, top-k checkpoints.
+
+Port of subgnn_tpu/train/loop.py in its streaming mode (one step per batch;
+reference runtime: pl.Trainer with Adam, global-norm gradient clipping,
+per-epoch validation, top-3 checkpointing on the monitored metric,
+SubGNN/train_config.py:109-158, SubGNN/SubGNN.py:317-504,1156-1161).
+
+Parameters are the model's explicit tree of tensors (JAX layout). A step
+runs the training forward, the loss, `torch.autograd.grad` over the
+trainable leaves (the embedding-table gradient goes through the plan kernel
+of ops/embedding.py when the batch carries plans), and `Adam.step`, which
+updates the leaves in place. Batches are host numpy arrays (the plans and
+compact similarities are built from them) copied to the device per step.
+Not ported yet: the fused-epoch mode, meshes, profiling, `lr_find`,
+`resume_from` and the TensorBoard writer.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import HParams
+from ..device import resolve_device
+from ..models.dropout import KeepMask, generator_keep_mask
+from ..models.subgnn import SubGNNModel
+from ..ops.embedding import GatherPlan
+from . import metrics as M
+from .checkpoint import TopKCheckpoints
+from .plans import PlanBuilder, batch_plans
+from .sims import compact_sims_for_batch
+
+# combined NP-sim bytes (train+val) above which batches carry host-gathered
+# anchor-column similarities (train/sims.py) instead of (B, C, n_nodes) rows
+COMPACT_NP_SIM_BYTES = 256 << 20
+
+
+def mpn_edges_per_step(hp: HParams, batch_size: int, max_n_cc: int) -> int:
+    """Anchor-patch -> CC message edges processed by one training step (the
+    throughput unit of the bench and the per-epoch counters)."""
+    per_layer = 0
+    if hp.use_neighborhood:
+        per_layer += hp.n_anchor_patches_N_in + hp.n_anchor_patches_N_out
+    if hp.use_position:
+        per_layer += hp.n_anchor_patches_pos_in + hp.n_anchor_patches_pos_out
+    if hp.use_structure:
+        per_layer += 2 * hp.n_anchor_patches_structure
+    return batch_size * max_n_cc * per_layer * hp.n_layers
+
+
+def copy_tree(tree, device):
+    """A nested dict/list tree of tensors copied to `device` as new leaves
+    (detached, never sharing storage with the caller's)."""
+    if isinstance(tree, dict):
+        return {k: copy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [copy_tree(v, device) for v in tree]
+    return tree.detach().to(device).clone()
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Leaves of a nested dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+class Adam:
+    """optax.adam(lr) (b1=0.9, b2=0.999, eps=1e-8), after
+    optax.clip_by_global_norm(grad_clip) when grad_clip > 0, over every
+    parameter leaf except the top-level keys in `frozen`, which get no
+    gradient, no moments and no update (subgnn_tpu/train/loop.py:50-63).
+
+    Clipping follows optax's formula, g * max/||g|| when ||g|| >= max
+    (torch's clip_grad_norm_ adds 1e-6 to the norm); the bias corrections
+    are taken in float32 as optax takes them.
+    """
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, lr: float, grad_clip: float = 0.0, frozen: tuple = ()):
+        self.lr, self.grad_clip, self.frozen = lr, grad_clip, tuple(frozen)
+
+    def trainable(self, params) -> List[torch.Tensor]:
+        return [x for k, v in params.items() if k not in self.frozen
+                for x in tree_leaves(v)]
+
+    def init(self, params) -> Dict[str, Any]:
+        """Zero moments for the trainable leaves; marks those leaves as
+        requiring grad and the frozen ones as not."""
+        for k, v in params.items():
+            for x in tree_leaves(v):
+                x.requires_grad_(k not in self.frozen)
+        leaves = self.trainable(params)
+        return {"count": 0,
+                "mu": [torch.zeros_like(x) for x in leaves],
+                "nu": [torch.zeros_like(x) for x in leaves]}
+
+    @torch.no_grad()
+    def step(self, params, grads: List[torch.Tensor],
+             opt_state: Dict[str, Any]) -> None:
+        """Update the trainable leaves of `params` in place; `grads` are
+        theirs, in `trainable` order (overwritten: clipped in place)."""
+        leaves = self.trainable(params)
+        if self.grad_clip and self.grad_clip > 0:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            scale = torch.where(norm < self.grad_clip,
+                                torch.ones_like(norm), self.grad_clip / norm)
+            torch._foreach_mul_(grads, scale)
+        mu, nu = opt_state["mu"], opt_state["nu"]
+        opt_state["count"] += 1
+        count = np.float32(opt_state["count"])
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
+        mu_hat = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mu_hat, denom)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(leaves, upd)
+
+
+def make_optimizer(hp: HParams) -> Adam:
+    """Adam + optional global-norm clipping; node embeddings frozen when
+    freeze_node_embeds (reference: SubGNN.py:568,1156-1161)."""
+    return Adam(hp.learning_rate, hp.grad_clip,
+                frozen=("node_embed",) if hp.freeze_node_embeds else ())
+
+
+def device_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """Host batch (numpy arrays, GatherPlans) -> tensors on `device`:
+    integer arrays as int64, floats as float32, masks as bool."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            continue
+        if isinstance(v, GatherPlan):
+            out[k] = v.to(device)
+            continue
+        a = np.require(v, requirements="W")        # torch wants writable
+        t = torch.as_tensor(a, device=device)
+        if a.dtype.kind in "iu":
+            t = t.long()
+        elif a.dtype.kind == "f":
+            t = t.float()
+        out[k] = t
+    return out
+
+
+def loss_and_grads(model: SubGNNModel, tx: Adam, params, state, batch,
+                   anchors, keep_mask: Optional[KeepMask] = None):
+    """Training forward, loss and gradients of the trainable leaves.
+    Returns (loss, logits, new_state, grads), the first two detached."""
+    logits, new_state = model(params, state, batch, anchors, train=True,
+                              keep_mask=keep_mask,
+                              cc_tables=params.get("train_cc"))
+    loss = model.loss_fn(logits, batch["label"], batch["valid"])
+    # leaves the forward does not reach get zero gradients, as in jax.grad
+    grads = list(torch.autograd.grad(loss, tx.trainable(params),
+                                     allow_unused=True,
+                                     materialize_grads=True))
+    return loss.detach(), logits.detach(), new_state, grads
+
+
+def train_step(model: SubGNNModel, tx: Adam, params, opt_state, state,
+               batch, anchors, keep_mask: Optional[KeepMask] = None):
+    """One step (subgnn_tpu/train/loop.py:104-118): forward + loss +
+    backward + Adam; params and opt_state are updated in place. Returns
+    (loss, logits, new_state) without synchronising with the device."""
+    loss, logits, new_state, grads = loss_and_grads(
+        model, tx, params, state, batch, anchors, keep_mask)
+    tx.step(params, grads, opt_state)
+    return loss, logits, new_state
+
+
+class Trainer:
+    def __init__(self, model: SubGNNModel, hp: HParams,
+                 ckpt_dir: Optional[str] = None,
+                 monitor: str = "val_micro_f1", checkpoint_k: int = 3,
+                 eval_cc_tables: Optional[Dict[str, Any]] = None,
+                 device: str | torch.device = "cuda"):
+        self.model = model
+        self.hp = hp
+        self.device = resolve_device(device)
+        self.monitor = monitor
+        self.ckpt = (TopKCheckpoints(ckpt_dir, checkpoint_k, monitor)
+                     if ckpt_dir else None)
+        self.metric_scores: List[Dict[str, Any]] = []
+        self.eval_cc_tables = eval_cc_tables or {}
+        self.tx = make_optimizer(hp)
+        self.params = self.state = self.opt_state = None
+        self.global_step = 0
+        # None = by NP-sim size (see fit); set True/False to force
+        self.compact_sims: Optional[bool] = None
+
+    # ---------------------------------------------------------------- steps
+
+    def train_step(self, batch, anchors, keep_mask=None):
+        """One optimizer step on self.params; returns (loss, logits)."""
+        loss, logits, self.state = train_step(
+            self.model, self.tx, self.params, self.opt_state, self.state,
+            batch, anchors, keep_mask)
+        return loss, logits
+
+    @torch.no_grad()
+    def eval_step(self, batch, anchors, cc_tables):
+        logits, _ = self.model(self.params, self.state, batch, anchors,
+                               train=False, cc_tables=cc_tables)
+        return self.model.loss_fn(logits, batch["label"], batch["valid"]), \
+            logits
+
+    @staticmethod
+    def _epoch_order(n, batch_size, rng_np, drop_last):
+        """(n_batches, B) shuffled subgraph indices, one shuffle of
+        arange(n) per epoch exactly as the JAX trainer draws it; a short
+        final batch is padded with index 0 (masked by `valid`)."""
+        order = np.arange(n)
+        rng_np.shuffle(order)
+        n_batches = n // batch_size if drop_last else -(-n // batch_size)
+        if n_batches == 0:
+            return None
+        take = order[: n_batches * batch_size]
+        if len(take) < n_batches * batch_size:
+            take = np.concatenate(
+                [take, np.zeros(n_batches * batch_size - len(take), np.int64)])
+        return take.reshape(n_batches, batch_size).astype(np.int32)
+
+    # ----------------------------------------------------------------- eval
+
+    def _use_compact(self, data) -> bool:
+        if data.NP_sim is None:
+            return False
+        if self.compact_sims is None:
+            return data.NP_sim.nbytes > COMPACT_NP_SIM_BYTES
+        return bool(self.compact_sims)
+
+    def evaluate(self, data, anchors, split: str = "val") -> Dict[str, Any]:
+        """Run the eval loop and aggregate metrics with the reference's key
+        names (reference: SubGNN.py:408-504). `anchors`: the split's host
+        anchor arrays."""
+        hp, dev = self.hp, self.device
+        compact = self._use_compact(data)
+        anchors_dev = device_batch(anchors, dev)
+        cc_tables = None
+        if hp.trainable_cc:
+            cc_tables = self.eval_cc_tables.get(split,
+                                                self.params.get("train_cc"))
+            cc_tables = {k: torch.as_tensor(v, device=dev)
+                         for k, v in cc_tables.items()}
+        logits_all, labels_all, losses, accs, f1s = [], [], [], [], []
+        for batch in data.batches(hp.batch_size, shuffle=False,
+                                  drop_last=False,
+                                  include_np_sim=not compact):
+            valid = batch["valid"]
+            if compact:
+                batch.update(compact_sims_for_batch(
+                    data.NP_sim, anchors, hp, batch["subgraph_idx"]))
+            loss, logits = self.eval_step(device_batch(batch, dev),
+                                          anchors_dev, cc_tables)
+            logits = logits.cpu().numpy()[valid]
+            labels = batch["label"][valid]
+            logits_all.append(logits)
+            labels_all.append(labels)
+            losses.append(float(loss))
+            accs.append(M.calc_accuracy(logits, labels, self.model.multilabel))
+            f1s.append(M.calc_f1(logits, labels, "macro",
+                                 self.model.multilabel))
+        return self._metrics(split, np.concatenate(logits_all),
+                             np.concatenate(labels_all), losses, accs, f1s)
+
+    def _metrics(self, split, logits, labels, losses, accs, f1s):
+        ml = self.model.multilabel
+        p = split  # metric key prefix
+        auroc, per_class = M.roc_auc_ovr(logits, labels, ml)
+        out = {
+            f"{p}_loss": float(np.mean(losses)),
+            f"{p}_micro_f1": M.calc_f1(logits, labels, "micro", ml),
+            f"{p}_macro_f1": M.calc_f1(logits, labels, "macro", ml),
+            f"{p}_acc": M.calc_accuracy(logits, labels, ml),
+            f"avg_{p}_acc": float(np.mean(accs)),
+            f"{'avg_macro_f1' if p == 'val' else p + '_avg_macro_f1'}":
+                float(np.mean(f1s)),
+            f"{p}_auroc": auroc,
+        }
+        for c, v in enumerate(per_class):
+            out[f"{p}_auroc_class_{c}"] = v
+        return out
+
+    # ------------------------------------------------------------------ fit
+
+    def fit(self, params, state, train_data, val_data,
+            anchors_by_split: Dict[str, Any], seed: int = 0,
+            log_fn: Optional[Callable[[str], None]] = print
+            ) -> Dict[str, Any]:
+        """Train for hp.max_epochs, one step per batch, validating after
+        every epoch. Returns the last epoch's metrics; per-epoch metrics are
+        in self.metric_scores. The caller's trees are copied, never
+        updated. Dropout masks come from a torch.Generator seeded with
+        `seed` (different bits from the JAX run's)."""
+        hp, dev = self.hp, self.device
+        self.metric_scores = []
+        if self.ckpt:
+            self.ckpt.kept = []
+        self.params = copy_tree(params, dev)
+        self.state = copy_tree(state, dev)
+        self.opt_state = self.tx.init(self.params)
+        self.global_step = 0
+        builder = PlanBuilder(self.params["node_embed"].shape[0])
+        keep_mask = generator_keep_mask(
+            torch.Generator(device=dev).manual_seed(seed))
+        rng_np = np.random.default_rng(seed)
+        n = len(train_data)
+        drop_last = hp.batch_size <= n
+        if self.compact_sims is None:
+            np_bytes = sum(d.NP_sim.nbytes for d in (train_data, val_data)
+                           if d.NP_sim is not None)
+            self.compact_sims = np_bytes > COMPACT_NP_SIM_BYTES
+        compact = self._use_compact(train_data)
+        train_np = anchors_by_split["train"]
+        train_dev = device_batch(train_np, dev)
+        edges_per_step = mpn_edges_per_step(hp, hp.batch_size,
+                                            train_data.cc_ids.shape[1])
+
+        for epoch in range(hp.max_epochs):
+            t0 = time.time()
+            order = self._epoch_order(n, hp.batch_size, rng_np, drop_last)
+            train_losses = []
+            for i, idx in enumerate([] if order is None else order):
+                valid = np.arange(i * hp.batch_size,
+                                  (i + 1) * hp.batch_size) < n
+                batch = _host_batch(train_data, idx, valid,
+                                    include_np_sim=not compact)
+                batch.update(batch_plans(builder, hp, batch["cc_ids"],
+                                         train_np, idx))
+                if compact:
+                    batch.update(compact_sims_for_batch(
+                        train_data.NP_sim, train_np, hp, idx))
+                loss, _ = self.train_step(device_batch(batch, dev),
+                                          train_dev, keep_mask)
+                train_losses.append(float(loss))
+                self.global_step += 1
+            train_time = time.time() - t0
+
+            val_metrics = self.evaluate(val_data, anchors_by_split["val"],
+                                        "val")
+            val_metrics["train_loss"] = float(np.mean(train_losses))
+            val_metrics["epoch"] = epoch
+            val_metrics["epoch_time_s"] = time.time() - t0
+            val_metrics["train_edges_per_s"] = (
+                edges_per_step * len(train_losses) / max(train_time, 1e-9))
+            self.metric_scores.append(val_metrics)
+            if self.ckpt:
+                self.ckpt.maybe_save(epoch, val_metrics, self.params,
+                                     self.state, self.opt_state,
+                                     global_step=self.global_step)
+            if log_fn:
+                log_fn(f"epoch {epoch}: "
+                       f"train_loss={val_metrics['train_loss']:.4f} "
+                       f"val_micro_f1={val_metrics['val_micro_f1']:.4f} "
+                       f"val_acc={val_metrics['val_acc']:.4f} "
+                       f"val_auroc={val_metrics['val_auroc']:.4f} "
+                       f"({val_metrics['epoch_time_s']:.1f}s)")
+        return self.metric_scores[-1] if self.metric_scores else {}
+
+
+def _host_batch(data, idx: np.ndarray, valid: np.ndarray,
+                include_np_sim: bool) -> Dict[str, Any]:
+    """The batch dict SubgraphData.batches yields, for given indices."""
+    batch = {"cc_ids": data.cc_ids[idx], "subgraph_idx": idx.astype(np.int32),
+             "label": data.labels[idx], "valid": valid}
+    for name in ("NP_sim", "I_S_sim", "B_S_sim"):
+        arr = getattr(data, name)
+        if arr is not None and (name != "NP_sim" or include_np_sim):
+            batch[name] = arr[idx]
+    return batch

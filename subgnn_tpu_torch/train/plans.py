@@ -1,11 +1,25 @@
-"""Host-side id layouts shared by the batch builders.
+"""Host-side gather plans for training batches.
 
-Only `neigh_ids_for_batch` is needed by serving; the gather plans of
-subgnn_tpu/train/plans.py arrive with the training step.
+Port of subgnn_tpu/train/plans.py. The model's embedding-table lookups
+(cc-id init and the per-layer neighborhood anchor gathers, reference:
+SubGNN/SubGNN.py:609-622, anchor_patch_samplers.py:352-364) go through
+ops/embedding.embedding_gather when the batch carries matching plans, so
+the table gradient is the plan-routed kernel instead of a scatter-add.
+Anchor ids and the batch schedule are host-known before the step, so plans
+are built here in numpy and shipped with the batch.
+
+A PlanBuilder remembers the tile count per plan name and only grows it
+(with headroom) when a batch needs more, so same-shaped batches get
+same-shaped plans. Tiling is row-split (ops/embedding.py): skewed id
+distributions (hub nodes, the PAD row) cost extra tiles, never wider tiles.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
+
+from ..ops.embedding import GatherPlan, make_gather_plan, tiles_needed
 
 
 def neigh_ids_for_batch(anchors, idx: np.ndarray) -> np.ndarray:
@@ -15,3 +29,40 @@ def neigh_ids_for_batch(anchors, idx: np.ndarray) -> np.ndarray:
     n_int = np.asarray(anchors["neigh_int"])
     n_bor = np.asarray(anchors["neigh_bor"])
     return np.concatenate([n_int[:, idx], n_bor[:, idx]], axis=-1)
+
+
+class PlanBuilder:
+    """Builds per-batch plans with sticky, growth-only tile counts."""
+
+    def __init__(self, n_rows: int):
+        self.n_rows = int(n_rows)
+        self.tiles: Dict[str, int] = {}
+
+    def _tiles(self, name: str, ids: np.ndarray) -> int:
+        need = tiles_needed(ids, self.n_rows)
+        prev = self.tiles.get(name, 0)
+        if need > prev:
+            # growing: ~6% headroom so shuffle-to-shuffle variation does not
+            # change the plan shape every epoch
+            need = max(need + 2, int(need * 1.0625))
+        t = max(prev, need)
+        self.tiles[name] = t
+        return t
+
+    def build(self, name: str, ids: np.ndarray) -> GatherPlan:
+        return make_gather_plan(ids, self.n_rows,
+                                n_tiles=self._tiles(name, ids))
+
+
+def batch_plans(builder: Optional[PlanBuilder], hp, batch_cc_ids: np.ndarray,
+                anchors, idx: np.ndarray) -> Dict[str, GatherPlan]:
+    """Plans for one batch (CPU tensors). batch_cc_ids is the batch's OWN
+    (B, C, L) id array, so padded short-batch rows match the gather
+    exactly; `anchors` are the split's host anchor arrays."""
+    if builder is None:
+        return {}
+    plans = {"cc_plan": builder.build("cc", np.asarray(batch_cc_ids))}
+    if hp.use_neighborhood:
+        plans["neigh_plan"] = builder.build(
+            "neigh", neigh_ids_for_batch(anchors, idx))
+    return plans

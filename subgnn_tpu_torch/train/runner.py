@@ -2,8 +2,8 @@
 
 Port of the serving half of subgnn_tpu/train/runner.py (SubGNNPipeline):
 the same files, caches, RNG streams and request flow, with the model and
-the structure DTW on a torch device. Training (run/fit) arrives with the
-training step.
+the structure DTW on a torch device. Training runs through
+train/loop.py:Trainer; `SubGNNPipeline.run` is not ported yet.
 """
 from __future__ import annotations
 
@@ -355,7 +355,7 @@ class SubGNNPipeline:
                         banchors[k] = banchors[k][:, tidx]
                 bcc = (None if cc_tables is None
                        else {k: v[tidx] for k, v in cc_tables.items()})
-                logits = model(params, state, tb, banchors, cc_tables=bcc)
+                logits, _ = model(params, state, tb, banchors, cc_tables=bcc)
                 out.append(logits.cpu().numpy()[batch["valid"]])
         timings["forward"] = time.time() - t_fwd
         timings["total"] = time.time() - t_all

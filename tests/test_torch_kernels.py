@@ -5,7 +5,8 @@ imports no JAX, so it runs on the GPU machine as
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 DTW tolerance 1e-5: the kernel repeats the plain version's fp32 operations
-in the same order (IEEE division, no fast-math).
+in the same order (IEEE division, no fast-math). segment_matmul: see its
+section below.
 """
 import numpy as np
 import pytest
@@ -58,3 +59,86 @@ def test_dtw_kernel_rejects_what_it_does_not_take(cuda):
         kdtw.dtw_distance_grouped(cs, cl, cs, cl, 1, 4, 4)
     with pytest.raises(ValueError):
         kdtw.dtw_distance_grouped(cs[:, :8], cl.cpu(), cs[:, :8], cl, 1, 4, 4)
+
+
+# ------------------------------------------------------------ segment_matmul
+#
+# Tolerance, per output row: |kernel - plain| <= 1e-5 * sum of |g| over that
+# row's slots (fp32 sums of the same terms in another order), plus one bf16
+# ulp of the plain value where the output is bf16 (the two sums may round to
+# neighbouring bf16 values).
+
+def _segment_case(rng, case, D):
+    from subgnn_tpu_torch.ops.embedding import TABLE_BLOCK, TILE_WIDTH
+    n_rows, extra = 1000, 0
+    if case == "uniform":
+        ids = rng.integers(0, n_rows, (64, 3, 45))
+    elif case == "pad_heavy":
+        ids = rng.integers(1, n_rows, (64, 3, 45))
+        ids[rng.random(ids.shape) < 0.4] = 0
+    elif case == "one_row":
+        ids = np.full(5 * TILE_WIDTH + 7, 300)
+    elif case == "only_pad":
+        ids = np.zeros((40, 16), np.int64)
+    elif case == "padding_tiles":
+        ids = rng.integers(0, 3 * TABLE_BLOCK, 2000)
+        n_rows, extra = 3 * TABLE_BLOCK, 5
+    g = rng.normal(size=(ids.size, D)).astype(np.float32)
+    return ids, n_rows, extra, g
+
+
+def _row_tol(g, ids, out_rows, out_dtype, plain):
+    absum = torch.zeros(out_rows, g.shape[1], dtype=torch.float32,
+                        device=g.device).index_add_(
+        0, torch.as_tensor(ids.reshape(-1), device=g.device),
+        g.float().abs())
+    tol = 1e-5 * absum
+    if out_dtype == torch.bfloat16:
+        tol = tol + plain.float().abs() * 2.0 ** -7
+    return tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "pad_heavy", "one_row",
+                                  "only_pad", "padding_tiles"])
+@pytest.mark.parametrize("D,g_dtype,out_dtype", [
+    (128, torch.float32, torch.float32), (128, torch.bfloat16, torch.bfloat16),
+    (32, torch.bfloat16, torch.float32), (256, torch.float32, torch.bfloat16)])
+def test_segment_matmul_kernel_matches_plain(cuda, case, D, g_dtype,
+                                             out_dtype):
+    from subgnn_tpu_torch.ops import embedding as E
+    rng = np.random.default_rng(sum(map(ord, case)) * 1000 + D)
+    ids, n_rows, extra, g_np = _segment_case(rng, case, D)
+    plan = E.make_gather_plan(ids, n_rows,
+                              E.tiles_needed(ids, n_rows) + extra).to(cuda)
+    g = torch.as_tensor(g_np, device=cuda).to(g_dtype)
+    out_rows = n_rows + 24                  # table rows past the plan
+    before = E.segment_matmul.launches
+    got = E.segment_matmul(g, plan, out_rows, out_dtype)
+    again = E.segment_matmul(g, plan, out_rows, out_dtype)
+    assert E.segment_matmul.launches == before + 2
+    ref = E.segment_matmul_torch(g, plan, out_rows, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (out_rows, D)
+    assert torch.equal(got, again)          # deterministic: same bits
+    err = (got.float() - ref.float()).abs()
+    assert (err <= _row_tol(g, ids, out_rows, out_dtype, ref)).all()
+    assert (got[n_rows:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_segment_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    from subgnn_tpu_torch.ops import embedding as E
+    ids = np.arange(100)
+    plan = E.make_gather_plan(ids, 128)
+    with pytest.raises(ValueError):         # plan left on the CPU
+        E.segment_matmul(torch.zeros(100, 128, device=cuda), plan)
+    plan = plan.to(cuda)
+    with pytest.raises(ValueError):         # D the kernel does not take
+        E.segment_matmul(torch.zeros(100, 96, device=cuda), plan)
+    with pytest.raises(ValueError):         # misaligned rows
+        E.segment_matmul(torch.zeros(100 * 128 + 1, device=cuda)[1:]
+                         .view(100, 128), plan)
+    with pytest.raises(TypeError):
+        E.segment_matmul(torch.zeros(100, 128, device=cuda,
+                                     dtype=torch.float16), plan)

@@ -191,7 +191,7 @@ def test_subgnn_forward_matches_jax(case):
     tcc = None if cc_tables is None else {k: _t(v) for k, v in
                                           cc_tables.items()}
     with torch.inference_mode():
-        logits_t = tmodel(p_t, s_t, tb, ta, cc_tables=tcc)
+        logits_t, _ = tmodel(p_t, s_t, tb, ta, cc_tables=tcc)
     assert logits_t.dtype == torch.float32
     _close(logits_t, logits_j)
 

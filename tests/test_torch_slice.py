@@ -173,6 +173,40 @@ def test_cli_serves_a_jax_checkpoint(roots, tmp_path, capsys):
     np.testing.assert_allclose(tout["probs"], jout["probs"], atol=1e-4)
 
 
+def test_both_clis_serve_a_port_checkpoint(roots, tmp_path, capsys):
+    """A checkpoint written by the port (train/checkpoint.py, the format its
+    Trainer saves) is served by the JAX predict CLI and the port's, with the
+    same predictions as the port's own predict on those weights."""
+    from subgnn_tpu.cli.predict import run_predict as j_run_predict
+    from subgnn_tpu_torch.cli.predict import main as t_main
+    from subgnn_tpu_torch.train.checkpoint import (
+        dump_json as t_dump_json, save_checkpoint as t_save_checkpoint)
+
+    hp = HParams(**HP, batch_norm=True)
+    tpipe = _torch_pipeline(roots[1], hp)
+    _, params, state = tpipe.build_model(seed=3)
+    expect = tpipe.predict(NOVEL, params=params, state=state, **PADS)
+    results = tmp_path / "run"
+    t_dump_json(results / "hyperparams.json", tpipe.hp.to_dict())
+    t_save_checkpoint(results / "checkpoints" /
+                      "epoch=0-val_micro_f1=0.50-val_acc=0.50-val_auroc=0.50"
+                      ".ckpt", params, state, meta={"epoch": 0})
+    jout = j_run_predict("mini", str(roots[0]), str(results), NOVEL,
+                         log_fn=None)
+    assert jout["pred"] == expect["pred"].tolist()
+    np.testing.assert_allclose(jout["probs"], expect["probs"], atol=1e-4)
+    out_file = tmp_path / "pred.json"
+    sub_file = tmp_path / "new.txt"
+    sub_file.write_text("\n".join("-".join(map(str, s)) for s in NOVEL))
+    t_main(["-task", "mini", "-project_root", str(roots[1]),
+            "-restoreModelPath", str(results), "-subgraphs", str(sub_file),
+            "-out", str(out_file), "-device", "cpu"])
+    capsys.readouterr()
+    tout = json.loads(out_file.read_text())
+    assert tout["pred"] == jout["pred"]
+    np.testing.assert_allclose(tout["probs"], expect["probs"], atol=1e-6)
+
+
 def test_entry_points_refuse_cuda_without_a_gpu(roots, tmp_path,
                                                 monkeypatch):
     """Asking for the card on a machine without one raises; nothing falls
