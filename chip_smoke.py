@@ -14,7 +14,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 plans (B=1280 bf16 and B=512 fp32, neigh and cc) and three
                 edge cases (every id on one row, only PAD ids, padding
                 tiles), per row |kernel - plain| <= 1e-5 * sum |g| over the
-                row's slots (+ one bf16 ulp of the plain value for bf16);
+                row's slots (+ one bf16 ulp of the plain value for bf16; the
+                output takes g's dtype, fp32 or bf16);
   3. serving  — the port's SubGNNPipeline.predict at the flagship widths
                 (D=128, 2 layers, all channels, float32) on a synthetic
                 8192-node, average-degree-16 graph: 4 requests of 64 novel
@@ -32,7 +33,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. timings  — cold/warm per-request stage timings; each kernel's time
                 against its plain version's, its lower bound on the card and
                 (segment_matmul) index_add_, at the main path's own inputs.
-Each path's launch counts are zeroed just before it and read just after.
+Each path's launch counts are zeroed just before it and read just after:
+the DTW record's launches are the 4 serving requests', segment_matmul's are
+Trainer.fit's (the 20 bf16 steps are counted on their own, for their check).
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, and when run outside a checkout of the repository.
@@ -142,17 +145,17 @@ def event_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def segment_check(E, g, ids, plan, out_rows, out_dtype):
+def segment_check(E, g, ids, plan, out_rows):
     """Kernel vs plain on the card: (max abs err, within tolerance). The
     tolerance per row is SEG_REL_TOL x the sum of |g| over the row's slots
     (index_add_ of |g|), plus one bf16 ulp of the plain value for bf16."""
     import torch
-    got = E.segment_matmul(g, plan, out_rows, out_dtype)
-    ref = E.segment_matmul_torch(g, plan, out_rows, out_dtype)
+    got = E.segment_matmul(g, plan, out_rows)
+    ref = E.segment_matmul_torch(g, plan, out_rows)
     absum = torch.zeros(out_rows, g.shape[1], device=g.device).index_add_(
         0, ids.reshape(-1), g.float().abs())
     tol = SEG_REL_TOL * absum
-    if out_dtype == torch.bfloat16:
+    if g.dtype == torch.bfloat16:
         tol = tol + ref.float().abs() * BF16_ULP
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
@@ -252,7 +255,7 @@ def main(argv=None) -> int:
                 ("neigh", neigh_ids(batch_b, anchors_b), batch_b["neigh_plan"]),
                 ("cc", batch_b["cc_ids"], batch_b["cc_plan"])):
             g = torch.randn(ids.numel(), D, generator=gen, device=dev).to(tdt)
-            err, ok = segment_check(E, g, ids, plan, rows, tdt)
+            err, ok = segment_check(E, g, ids, plan, rows)
             seg_err = max(seg_err, err)
             print(f"[kernel] segment_matmul {dt} B={batch_b['cc_ids'].shape[0]}"
                   f" {name} plan ({plan_stats(ids, plan)}): max_abs_err "
@@ -271,7 +274,7 @@ def main(argv=None) -> int:
         ids = torch.as_tensor(ids_np, device=dev)
         for tdt in (torch.float32, torch.bfloat16):
             g = torch.randn(ids.numel(), D, generator=gen, device=dev).to(tdt)
-            err, ok = segment_check(E, g, ids, plan, rows + 8, tdt)
+            err, ok = segment_check(E, g, ids, plan, rows + 8)
             seg_err = max(seg_err, err)
             print(f"[kernel] segment_matmul edge case {name} {tdt} "
                   f"({plan_stats(ids, plan)}): max_abs_err {err!r}, within "
@@ -481,16 +484,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(fmodel, fhp, ckpt_dir=str(Path(tmp) / "ckpt"),
                           device=dev)
-        before_fit = E.segment_matmul.launches
+        E.segment_matmul.launches = 0
         last = trainer.fit(fparams, fstate, fdata["train"], fdata["val"],
                            fanchors, seed=args.seed,
                            log_fn=lambda m: print(f"[training] fit {m}"))
-        fit_launches = E.segment_matmul.launches - before_fit
+        fit_launches = E.segment_matmul.launches
         best = trainer.ckpt.best_path
         check(best is not None and best.exists(),
               "Trainer.fit wrote no checkpoint")
         ckpt_bytes = best.stat().st_size
-    seg_launches = E.segment_matmul.launches
     for k in ("train_loss", "val_loss", "val_micro_f1", "val_acc",
               "val_auroc"):
         check(math.isfinite(last[k]), f"Trainer.fit: {k} = {last[k]!r}")
@@ -512,16 +514,16 @@ def main(argv=None) -> int:
             ("cc", batch["cc_ids"], batch["cc_plan"])):
         g = torch.randn(ids.numel(), D, generator=gen,
                         device=dev).to(torch.bfloat16)
-        err, ok = segment_check(E, g, ids, plan, rows, torch.bfloat16)
+        err, ok = segment_check(E, g, ids, plan, rows)
         check(ok, f"segment_matmul disagrees at the timed {name} inputs")
         seg_err = max(seg_err, err)
         flat = ids.reshape(-1)
 
         def kernel():
-            E.segment_matmul(g, plan, rows, torch.bfloat16)
+            E.segment_matmul(g, plan, rows)
 
         def plain():
-            E.segment_matmul_torch(g, plan, rows, torch.bfloat16)
+            E.segment_matmul_torch(g, plan, rows)
 
         def library():
             torch.zeros(rows, D, dtype=torch.float32, device=dev).index_add_(
@@ -557,7 +559,7 @@ def main(argv=None) -> int:
     seg_record = {"name": "segment_matmul", "route": "cuda",
                   "source": "subgnn_tpu_torch/csrc/segment_matmul.cu",
                   "replaces": "subgnn_tpu/ops/embedding.py:162",
-                  "launches": seg_launches, "max_abs_err": seg_err,
+                  "launches": fit_launches, "max_abs_err": seg_err,
                   **timed["neigh"]}
 
     print(card())

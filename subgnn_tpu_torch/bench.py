@@ -7,10 +7,11 @@
 Prints ONE JSON line on stdout:
     {"metric": "mpn_edges_per_s", "value": N, "unit": "edges/s",
      "run_spread": [...], "dtype": "..."}
-and the card's name and power limit on stderr. `--profile N` then traces
-N more steps with torch.profiler and prints to stderr the wall and device
-busy time per step, the device's idle share, the kernel launches per step,
-and the ops with the most device time.
+and the card's name and power limit on stderr. `--profile N` then times N
+more steps without the profiler, traces N more with torch.profiler, and
+prints to stderr the wall time per step of both, the device busy time per
+step (from the trace), the device's idle share against each wall time, the
+device activities per step, and the ops with the most device time.
 
 The metric counts anchor-patch -> CC message edges processed per second by
 the full training step (forward + backward, with the embedding-table
@@ -244,12 +245,19 @@ def card() -> str:
 
 
 def profile_steps(step, n: int) -> None:
-    """Trace n calls of `step` with torch.profiler; print the breakdown to
-    stderr."""
+    """Time n calls of `step` unprofiled, then trace n more with
+    torch.profiler; print the breakdown to stderr. The idle share against
+    the unprofiled wall time is the step's own: the profiler's host cost
+    stretches only the traced steps, not the device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -267,8 +275,10 @@ def profile_steps(step, n: int) -> None:
             end = b
     wall_ms = wall / n * 1e3
     busy_ms = busy / n / 1e3
-    print(f"profile: {n} steps, wall {wall_ms!r} ms/step, device busy "
-          f"{busy_ms!r} ms/step, idle share {1 - busy_ms / wall_ms!r}, "
+    print(f"profile: {n} steps unprofiled, wall {plain_ms!r} ms/step; "
+          f"{n} steps traced, wall {wall_ms!r} ms/step, device busy "
+          f"{busy_ms!r} ms/step; idle share {1 - busy_ms / plain_ms!r} "
+          f"unprofiled, {1 - busy_ms / wall_ms!r} traced; "
           f"{len(kernels) / n!r} device activities (kernels, copies, "
           f"memsets) per step", file=sys.stderr)
     print(prof.key_averages().table(sort_by="self_device_time_total",

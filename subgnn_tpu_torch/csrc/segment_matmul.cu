@@ -5,7 +5,8 @@
 // the tile's 128-row table block, tiles of one block accumulated in place in
 // VMEM while the grid walks them in order on one core). Same result:
 //   dtable[block*128 + local] = sum over the plan's slots of g[pos]   (fp32)
-// written in the table's dtype (fp32 or bf16); rows no slot names are 0.
+// written in the cotangent's dtype, which is the table's (fp32 or bf16);
+// rows no slot names are 0.
 //
 // The plan (subgnn_tpu_torch/ops/embedding.py:make_gather_plan): pos/local
 // (T, W) int32, block (T,) int32 non-decreasing. The slots of one table block
@@ -102,11 +103,11 @@ __device__ __forceinline__ long long slot_key(const int* local,
                            : -1;
 }
 
-template <typename TIn, typename TOut, int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
-segment_pass1(const TIn* __restrict__ g, const int* __restrict__ pos,
+segment_pass1(const T* __restrict__ g, const int* __restrict__ pos,
               const int* __restrict__ local, const int* __restrict__ block,
-              TOut* __restrict__ out, float* __restrict__ partials,
+              T* __restrict__ out, float* __restrict__ partials,
               int* __restrict__ flags, long long n_ids, long long out_rows,
               long long n_chunks, int W, int D) {
   const int lane = threadIdx.x & 31;
@@ -144,7 +145,7 @@ segment_pass1(const TIn* __restrict__ g, const int* __restrict__ pos,
         loc[u] = __shfl_sync(kFull, my_loc, k0 + u);
         const int p = __shfl_sync(kFull, my_pos, k0 + u);
         if (loc[u] < kTableBlock && p >= 0 && p < n_ids) {
-          load_row<TIn, VEC>(g + static_cast<long long>(p) * D + lane * VEC,
+          load_row<T, VEC>(g + static_cast<long long>(p) * D + lane * VEC,
                              v[u]);
         } else {
           loc[u] = kTableBlock;  // padding (or a slot outside g): skip
@@ -158,7 +159,7 @@ segment_pass1(const TIn* __restrict__ g, const int* __restrict__ pos,
             if (head) {
               store_row<float, VEC>(head_part, acc);
             } else if (row0 + cur < out_rows) {
-              store_row<TOut, VEC>(out + (row0 + cur) * D + lane * VEC, acc);
+              store_row<T, VEC>(out + (row0 + cur) * D + lane * VEC, acc);
             }
             head = false;
           }
@@ -179,17 +180,17 @@ segment_pass1(const TIn* __restrict__ g, const int* __restrict__ pos,
     } else if (open_end) {
       store_row<float, VEC>(tail_part, acc);
     } else if (row0 + cur < out_rows) {
-      store_row<TOut, VEC>(out + (row0 + cur) * D + lane * VEC, acc);
+      store_row<T, VEC>(out + (row0 + cur) * D + lane * VEC, acc);
     }
   }
   if (lane == 0) flags[chunk] = (open_end ? kOpenEnd : 0) | (cont ? kCont : 0);
 }
 
-template <typename TOut, int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_pass2(const int* __restrict__ local, const int* __restrict__ block,
               const float* __restrict__ partials,
-              const int* __restrict__ flags, TOut* __restrict__ out,
+              const int* __restrict__ flags, T* __restrict__ out,
               long long out_rows, long long n_chunks, int W, int D) {
   const long long c0 = blockIdx.x;
   // only the chunk where a run crossing a chunk edge begins does any work
@@ -258,47 +259,45 @@ segment_pass2(const int* __restrict__ local, const int* __restrict__ block,
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += s_acc[w][t];
-    if (row < out_rows) out[row * D + t] = from_float<TOut>(s);
+    if (row < out_rows) out[row * D + t] = from_float<T>(s);
   }
 }
 
-template <typename TIn, typename TOut, int VEC>
+template <typename T, int VEC>
 cudaError_t run(const void* g, const int* pos, const int* local,
                 const int* block, void* out, float* partials, int* flags,
                 long long n_ids, long long out_rows, long long n_chunks,
                 int W, int D, cudaStream_t s) {
   const long long grid1 = (n_chunks + kWarps - 1) / kWarps;
-  segment_pass1<TIn, TOut, VEC><<<static_cast<unsigned>(grid1), kWarps * 32,
-                                  0, s>>>(
-      static_cast<const TIn*>(g), pos, local, block, static_cast<TOut*>(out),
+  segment_pass1<T, VEC><<<static_cast<unsigned>(grid1), kWarps * 32, 0, s>>>(
+      static_cast<const T*>(g), pos, local, block, static_cast<T*>(out),
       partials, flags, n_ids, out_rows, n_chunks, W, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segment_pass2<TOut, VEC><<<static_cast<unsigned>(n_chunks), kWarps * 32, 0,
-                             s>>>(local, block, partials, flags,
-                                  static_cast<TOut*>(out), out_rows, n_chunks,
-                                  W, D);
+  segment_pass2<T, VEC><<<static_cast<unsigned>(n_chunks), kWarps * 32, 0,
+                          s>>>(local, block, partials, flags,
+                               static_cast<T*>(out), out_rows, n_chunks, W, D);
   return cudaGetLastError();
 }
 
-template <typename TIn, typename TOut>
+template <typename T>
 cudaError_t run_vec(int vec, const void* g, const int* pos, const int* local,
                     const int* block, void* out, float* partials, int* flags,
                     long long n_ids, long long out_rows, long long n_chunks,
                     int W, int D, cudaStream_t s) {
   switch (vec) {
     case 1:
-      return run<TIn, TOut, 1>(g, pos, local, block, out, partials, flags,
-                               n_ids, out_rows, n_chunks, W, D, s);
+      return run<T, 1>(g, pos, local, block, out, partials, flags, n_ids,
+                         out_rows, n_chunks, W, D, s);
     case 2:
-      return run<TIn, TOut, 2>(g, pos, local, block, out, partials, flags,
-                               n_ids, out_rows, n_chunks, W, D, s);
+      return run<T, 2>(g, pos, local, block, out, partials, flags, n_ids,
+                         out_rows, n_chunks, W, D, s);
     case 4:
-      return run<TIn, TOut, 4>(g, pos, local, block, out, partials, flags,
-                               n_ids, out_rows, n_chunks, W, D, s);
+      return run<T, 4>(g, pos, local, block, out, partials, flags, n_ids,
+                         out_rows, n_chunks, W, D, s);
     case 8:
-      return run<TIn, TOut, 8>(g, pos, local, block, out, partials, flags,
-                               n_ids, out_rows, n_chunks, W, D, s);
+      return run<T, 8>(g, pos, local, block, out, partials, flags, n_ids,
+                         out_rows, n_chunks, W, D, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -307,22 +306,21 @@ cudaError_t run_vec(int vec, const void* g, const int* pos, const int* local,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t; 0 = ok.
-// g (n_ids, D) f32 or bf16 (g_bf16), 16-byte aligned; pos/local (T, W) i32;
-// block (T,) i32; out (out_rows, D) f32 or bf16 (out_bf16); partials
-// (2 * T*W/128, D) f32 and flags (T*W/128,) i32 scratch. D is 32, 64, 128
-// or 256; W a multiple of 128.
+// g (n_ids, D) and out (out_rows, D) both f32, or both bf16 (bf16), g 16-byte
+// aligned; pos/local (T, W) i32; block (T,) i32; partials (2 * T*W/128, D)
+// f32 and flags (T*W/128,) i32 scratch. D is 32, 64, 128 or 256; W a
+// multiple of 128.
 extern "C" int subgnn_segment_matmul(const void* g, const void* pos,
                                      const void* local, const void* block,
                                      void* out, long long n_ids,
                                      long long out_rows, int T, int W, int D,
-                                     int g_bf16, int out_bf16, void* partials,
-                                     void* flags, void* stream) {
+                                     int bf16, void* partials, void* flags,
+                                     void* stream) {
   if (out_rows <= 0) return 0;
   if (D <= 0 || D % 32 || D > kMaxD || W <= 0 || W % kChunk || T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t out_bytes =
-      static_cast<size_t>(out_rows) * D * (out_bf16 ? 2 : 4);
+  const size_t out_bytes = static_cast<size_t>(out_rows) * D * (bf16 ? 2 : 4);
   cudaError_t err = cudaMemsetAsync(out, 0, out_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_chunks = static_cast<long long>(T) * W / kChunk;
@@ -334,18 +332,11 @@ extern "C" int subgnn_segment_matmul(const void* g, const void* pos,
   const auto* b = static_cast<const int*>(block);
   auto* part = static_cast<float*>(partials);
   auto* fl = static_cast<int*>(flags);
-  if (g_bf16 && out_bf16)
-    err = run_vec<__nv_bfloat16, __nv_bfloat16>(vec, g, p, l, b, out, part, fl,
-                                                n_ids, out_rows, n_chunks, W,
-                                                D, s);
-  else if (g_bf16)
-    err = run_vec<__nv_bfloat16, float>(vec, g, p, l, b, out, part, fl, n_ids,
-                                        out_rows, n_chunks, W, D, s);
-  else if (out_bf16)
-    err = run_vec<float, __nv_bfloat16>(vec, g, p, l, b, out, part, fl, n_ids,
-                                        out_rows, n_chunks, W, D, s);
+  if (bf16)
+    err = run_vec<__nv_bfloat16>(vec, g, p, l, b, out, part, fl, n_ids,
+                                 out_rows, n_chunks, W, D, s);
   else
-    err = run_vec<float, float>(vec, g, p, l, b, out, part, fl, n_ids,
-                                out_rows, n_chunks, W, D, s);
+    err = run_vec<float>(vec, g, p, l, b, out, part, fl, n_ids, out_rows,
+                         n_chunks, W, D, s);
   return static_cast<int>(err);
 }

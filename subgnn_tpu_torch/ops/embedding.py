@@ -10,7 +10,7 @@ slots (hot blocks such as the PAD row get many tiles, never wider ones).
 
     dtable[row] = sum of g[pos] over the plan slots whose id is `row`,
 
-accumulated in fp32 and written in the table's dtype. It replaces the Pallas
+accumulated in fp32 and written in g's dtype, which is the table's. It replaces the Pallas
 TPU kernel subgnn_tpu/ops/embedding.py:_segment_matmul_pallas. A CUDA tensor
 launches csrc/segment_matmul.cu (a deterministic segmented row reduction;
 see the source for its design and bound); a CPU tensor takes the plain
@@ -110,14 +110,12 @@ def make_gather_plan(ids: np.ndarray, n_rows: int,
 
 
 def segment_matmul_torch(g: torch.Tensor, plan: GatherPlan,
-                         out_rows: int | None = None,
-                         out_dtype: torch.dtype = torch.float32
-                         ) -> torch.Tensor:
+                         out_rows: int | None = None) -> torch.Tensor:
     """Plain version of `segment_matmul`: per-tile one-hot product plus a
     block-level scatter-add, in fp32 (the torch form of
     subgnn_tpu/ops/embedding.py:_segment_matmul_xla).
 
-    g: (n_ids, D) flat cotangent rows. Returns (out_rows, D) in out_dtype
+    g: (n_ids, D) flat cotangent rows. Returns (out_rows, D) in g's dtype
     (out_rows defaults to plan.n_rows; rows past plan.n_rows are zero)."""
     out_rows = plan.n_rows if out_rows is None else out_rows
     D = g.shape[-1]
@@ -134,7 +132,7 @@ def segment_matmul_torch(g: torch.Tensor, plan: GatherPlan,
     out = out.reshape(-1, D)[:plan.n_rows]
     if out_rows > plan.n_rows:
         out = torch.cat([out, out.new_zeros(out_rows - plan.n_rows, D)])
-    return out[:out_rows].to(out_dtype)
+    return out[:out_rows].to(g.dtype)
 
 
 _fn = None
@@ -146,7 +144,7 @@ def _kernel():
         from .build import load
         fn = load("segment_matmul").subgnn_segment_matmul
         fn.argtypes = ([ctypes.c_void_p] * 5
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -156,15 +154,12 @@ def _kernel():
 CHUNK = 128  # plan slots per warp in the kernel (csrc/segment_matmul.cu)
 
 
-def _check(g, plan, out_dtype):
+def _check(g, plan):
     dev = g.device
     if g.dim() != 2:
         raise ValueError(f"g must be (n_ids, D), got {tuple(g.shape)}")
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
-                        f"{out_dtype}")
     T, W = plan.pos.shape
     for name, t, shape in (("pos", plan.pos, (T, W)),
                            ("local", plan.local, (T, W)),
@@ -181,9 +176,8 @@ def _check(g, plan, out_dtype):
 
 
 def segment_matmul(g: torch.Tensor, plan: GatherPlan,
-                   out_rows: int | None = None,
-                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """dtable (out_rows, D) in out_dtype: for each table row, the fp32 sum
+                   out_rows: int | None = None) -> torch.Tensor:
+    """dtable (out_rows, D) in g's dtype: for each table row, the fp32 sum
     of the rows of g routed to it by `plan`; zero for rows no slot names,
     including rows past plan.n_rows.
 
@@ -194,10 +188,10 @@ def segment_matmul(g: torch.Tensor, plan: GatherPlan,
     run the plain version.
     """
     out_rows = plan.n_rows if out_rows is None else int(out_rows)
-    _check(g, plan, out_dtype)
+    _check(g, plan)
     dev = g.device
     if dev.type == "cpu":
-        return segment_matmul_torch(g, plan, out_rows, out_dtype)
+        return segment_matmul_torch(g, plan, out_rows)
     if dev.type != "cuda":
         raise ValueError(f"segment_matmul: unsupported device {dev}")
     n_ids, D = g.shape
@@ -211,7 +205,7 @@ def segment_matmul(g: torch.Tensor, plan: GatherPlan,
         raise ValueError("g must be contiguous and 16-byte aligned")
     if out_rows < plan.n_rows:
         raise ValueError(f"out_rows {out_rows} < plan.n_rows {plan.n_rows}")
-    out = torch.empty(out_rows, D, dtype=out_dtype, device=dev)
+    out = torch.empty(out_rows, D, dtype=g.dtype, device=dev)
     n_chunks = T * W // CHUNK
     # fp32 partial rows of runs that cross a chunk edge, and per-chunk flags
     partials = torch.empty(2 * max(n_chunks, 1), D, dtype=torch.float32,
@@ -222,9 +216,8 @@ def segment_matmul(g: torch.Tensor, plan: GatherPlan,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(g.data_ptr(), plan.pos.data_ptr(), plan.local.data_ptr(),
                  plan.block.data_ptr(), out.data_ptr(), n_ids, out_rows, T, W,
-                 D, int(g.dtype == torch.bfloat16),
-                 int(out_dtype == torch.bfloat16),
-                 partials.data_ptr(), flags.data_ptr(), stream)
+                 D, int(g.dtype == torch.bfloat16), partials.data_ptr(),
+                 flags.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_matmul kernel launch failed: "
                            f"cudaError_t {err}")
@@ -247,17 +240,16 @@ class EmbeddingGather(torch.autograd.Function):
     def forward(ctx, table, ids, plan):
         ctx.plan = plan
         ctx.rows = table.shape[0]
-        ctx.table_dtype = table.dtype
         return table[ids]
 
     @staticmethod
     def backward(ctx, grad):
+        # grad has the forward output's dtype, the table's, so dtable has it
         D = grad.shape[-1]
         g = grad.reshape(-1, D).contiguous()
         if g.data_ptr() % 16:
             g = g.clone()
-        return (segment_matmul(g, ctx.plan, ctx.rows, ctx.table_dtype),
-                None, None)
+        return segment_matmul(g, ctx.plan, ctx.rows), None, None
 
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor,

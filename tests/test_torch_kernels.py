@@ -65,8 +65,8 @@ def test_dtw_kernel_rejects_what_it_does_not_take(cuda):
 #
 # Tolerance, per output row: |kernel - plain| <= 1e-5 * sum of |g| over that
 # row's slots (fp32 sums of the same terms in another order), plus one bf16
-# ulp of the plain value where the output is bf16 (the two sums may round to
-# neighbouring bf16 values).
+# ulp of the plain value where g, and so the output, is bf16 (the two sums may
+# round to neighbouring bf16 values).
 
 def _segment_case(rng, case, D):
     from subgnn_tpu_torch.ops.embedding import TABLE_BLOCK, TILE_WIDTH
@@ -87,13 +87,13 @@ def _segment_case(rng, case, D):
     return ids, n_rows, extra, g
 
 
-def _row_tol(g, ids, out_rows, out_dtype, plain):
+def _row_tol(g, ids, out_rows, plain):
     absum = torch.zeros(out_rows, g.shape[1], dtype=torch.float32,
                         device=g.device).index_add_(
         0, torch.as_tensor(ids.reshape(-1), device=g.device),
         g.float().abs())
     tol = 1e-5 * absum
-    if out_dtype == torch.bfloat16:
+    if g.dtype == torch.bfloat16:
         tol = tol + plain.float().abs() * 2.0 ** -7
     return tol
 
@@ -101,28 +101,27 @@ def _row_tol(g, ids, out_rows, out_dtype, plain):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["uniform", "pad_heavy", "one_row",
                                   "only_pad", "padding_tiles"])
-@pytest.mark.parametrize("D,g_dtype,out_dtype", [
-    (128, torch.float32, torch.float32), (128, torch.bfloat16, torch.bfloat16),
-    (32, torch.bfloat16, torch.float32), (256, torch.float32, torch.bfloat16)])
-def test_segment_matmul_kernel_matches_plain(cuda, case, D, g_dtype,
-                                             out_dtype):
+@pytest.mark.parametrize("D,dtype", [
+    (128, torch.float32), (128, torch.bfloat16), (32, torch.bfloat16),
+    (256, torch.float32)])
+def test_segment_matmul_kernel_matches_plain(cuda, case, D, dtype):
     from subgnn_tpu_torch.ops import embedding as E
     rng = np.random.default_rng(sum(map(ord, case)) * 1000 + D)
     ids, n_rows, extra, g_np = _segment_case(rng, case, D)
     plan = E.make_gather_plan(ids, n_rows,
                               E.tiles_needed(ids, n_rows) + extra).to(cuda)
-    g = torch.as_tensor(g_np, device=cuda).to(g_dtype)
+    g = torch.as_tensor(g_np, device=cuda).to(dtype)
     out_rows = n_rows + 24                  # table rows past the plan
     before = E.segment_matmul.launches
-    got = E.segment_matmul(g, plan, out_rows, out_dtype)
-    again = E.segment_matmul(g, plan, out_rows, out_dtype)
+    got = E.segment_matmul(g, plan, out_rows)
+    again = E.segment_matmul(g, plan, out_rows)
     assert E.segment_matmul.launches == before + 2
-    ref = E.segment_matmul_torch(g, plan, out_rows, out_dtype)
+    ref = E.segment_matmul_torch(g, plan, out_rows)
     torch.cuda.synchronize()
-    assert got.dtype == out_dtype and got.shape == (out_rows, D)
+    assert got.dtype == dtype and got.shape == (out_rows, D)
     assert torch.equal(got, again)          # deterministic: same bits
     err = (got.float() - ref.float()).abs()
-    assert (err <= _row_tol(g, ids, out_rows, out_dtype, ref)).all()
+    assert (err <= _row_tol(g, ids, out_rows, ref)).all()
     assert (got[n_rows:] == 0).all()
 
 
