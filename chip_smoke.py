@@ -33,6 +33,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. timings  — cold/warm per-request stage timings; each kernel's time
                 against its plain version's, its lower bound on the card and
                 (segment_matmul) index_add_, at the main path's own inputs.
+                Each kernel record holds `ms` (= `call_ms`: CUDA events
+                around 50 back-to-back eager calls, the larger of the host's
+                enqueue time and the device time), `device_ms` (the sum of
+                one call's own device activities, traced with torch.profiler
+                with the L2 flushed before each call) and `span_ms` (first
+                start to last end of those activities);
+                subgnn_tpu_torch/kernel_times.py has the helpers.
 Each path's launch counts are zeroed just before it and read just after:
 the DTW record's launches are the 4 serving requests', segment_matmul's are
 Trainer.fit's (the 20 bf16 steps are counted on their own, for their check).
@@ -54,10 +61,9 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# H100 SXM published peak (NVIDIA data sheet): fp32 outside the tensor
+# cores (the HBM3 bandwidth is kernel_times.PEAK_HBM_BYTES)
 PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 DTW_FLOPS_PER_CELL = 8      # max, min, 2 adds, 1 div, 1 sub, 3-way min
 DTW_TOL = 1e-5              # same fp32 operations in the same order
 CPU_GPU_REL_TOL = 1e-3      # float32 sums in another order on each device
@@ -131,26 +137,14 @@ def dtw_inputs(graph, cc_ids, pool_cache):
             2, n * C, ai.shape[0])
 
 
-def event_ms(fn, iters):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def segment_check(E, g, ids, plan, out_rows):
-    """Kernel vs plain on the card: (max abs err, within tolerance). The
-    tolerance per row is SEG_REL_TOL x the sum of |g| over the row's slots
-    (index_add_ of |g|), plus one bf16 ulp of the plain value for bf16."""
+    """Kernel vs plain on the card: (max abs err, within tolerance and the
+    same bits on a second run). The tolerance per row is SEG_REL_TOL x the
+    sum of |g| over the row's slots (index_add_ of |g|), plus one bf16 ulp
+    of the plain value for bf16."""
     import torch
     got = E.segment_matmul(g, plan, out_rows)
+    again = E.segment_matmul(g, plan, out_rows)
     ref = E.segment_matmul_torch(g, plan, out_rows)
     absum = torch.zeros(out_rows, g.shape[1], device=g.device).index_add_(
         0, ids.reshape(-1), g.float().abs())
@@ -159,7 +153,8 @@ def segment_check(E, g, ids, plan, out_rows):
         tol = tol + ref.float().abs() * BF16_ULP
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
-    return float(err.max()), bool((err <= tol).all())
+    return (float(err.max()),
+            bool((err <= tol).all()) and torch.equal(got, again))
 
 
 def plan_stats(ids, plan):
@@ -186,6 +181,9 @@ def main(argv=None) -> int:
                                         card, flagship_hparams)
     from subgnn_tpu_torch.config import HParams, RunConfig
     from subgnn_tpu_torch.data.dataset import initialize_cc_ids
+    from subgnn_tpu_torch.kernel_times import (PEAK_HBM_BYTES, bench_plans,
+                                               device_times, event_ms,
+                                               segment_bound_ms)
     from subgnn_tpu_torch.models.subgnn import tree_to
     from subgnn_tpu_torch.ops import build
     from subgnn_tpu_torch.ops import dtw as kdtw
@@ -193,14 +191,6 @@ def main(argv=None) -> int:
     from subgnn_tpu_torch.train.loop import (Trainer, copy_tree,
                                              loss_and_grads, make_optimizer,
                                              mpn_edges_per_step, train_step)
-    from subgnn_tpu_torch.train.plans import neigh_ids_for_batch
-
-    def neigh_ids(batch, anchors):
-        """The batch's neighborhood anchor ids, laid out as its plan."""
-        host = {k: anchors[k].cpu().numpy() for k in ("neigh_int",
-                                                      "neigh_bor")}
-        return torch.as_tensor(neigh_ids_for_batch(
-            host, batch["subgraph_idx"].cpu().numpy()), device=dev)
     from subgnn_tpu_torch.train.runner import SubGNNPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,17 +241,15 @@ def main(argv=None) -> int:
     for dt, (_, _, params_b, _, batch_b, anchors_b) in benches.items():
         rows = params_b["node_embed"].shape[0]
         tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
-        for name, ids, plan in (
-                ("neigh", neigh_ids(batch_b, anchors_b), batch_b["neigh_plan"]),
-                ("cc", batch_b["cc_ids"], batch_b["cc_plan"])):
+        for name, ids, plan in bench_plans(batch_b, anchors_b):
             g = torch.randn(ids.numel(), D, generator=gen, device=dev).to(tdt)
             err, ok = segment_check(E, g, ids, plan, rows)
             seg_err = max(seg_err, err)
             print(f"[kernel] segment_matmul {dt} B={batch_b['cc_ids'].shape[0]}"
                   f" {name} plan ({plan_stats(ids, plan)}): max_abs_err "
-                  f"{err!r}, within tolerance {ok}")
-            check(ok, f"segment_matmul disagrees with its plain version at "
-                      f"the {dt} {name} plan")
+                  f"{err!r}, within tolerance and deterministic {ok}")
+            check(ok, f"segment_matmul disagrees with its plain version (or "
+                      f"with itself on a second run) at the {dt} {name} plan")
     rows = 8200
     edge = {"one_row": np.full(3 * E.TILE_WIDTH + 5, 4242),
             "only_pad": np.zeros(40 * 16, np.int64),
@@ -278,7 +266,7 @@ def main(argv=None) -> int:
             seg_err = max(seg_err, err)
             print(f"[kernel] segment_matmul edge case {name} {tdt} "
                   f"({plan_stats(ids, plan)}): max_abs_err {err!r}, within "
-                  f"tolerance {ok}")
+                  f"tolerance and deterministic {ok}")
             check(ok, f"segment_matmul disagrees at edge case {name}")
 
     # ---------------------------------------------------------- 3. serving
@@ -364,6 +352,7 @@ def main(argv=None) -> int:
 
         p1 = event_ms(plain, 3)
         k1 = event_ms(kernel, 50)
+        dev_t = device_times(kernel)
         k2 = event_ms(kernel, 50)
         p2 = event_ms(plain, 3)
         ms, plain_ms = min(k1, k2), min(p1, p2)
@@ -379,7 +368,10 @@ def main(argv=None) -> int:
         print(f"[timings] dtw_grouped at request inputs (pairs "
               f"{Gr * ncr * nar}, DP cells {cells}): kernel {ms!r} ms "
               f"(runs {k1!r}, {k2!r}), plain {plain_ms!r} ms (runs {p1!r}, "
-              f"{p2!r}), bound {bound_ms!r} ms, max_abs_err {req_err!r}")
+              f"{p2!r}), bound {bound_ms!r} ms, max_abs_err {req_err!r}; "
+              f"device_ms {dev_t['device_ms']!r}, span_ms "
+              f"{dev_t['span_ms']!r}, device activities "
+              f"{json.dumps(dev_t['activities'])}")
 
     dtw_record = {"name": "dtw_grouped", "route": "cuda",
                   "source": "subgnn_tpu_torch/csrc/dtw.cu",
@@ -387,7 +379,8 @@ def main(argv=None) -> int:
                   "launches": launches, "max_abs_err": max_abs_err,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                  "library_ms": None}
+                  "library_ms": None, "device_ms": dev_t["device_ms"],
+                  "span_ms": dev_t["span_ms"], "call_ms": ms}
 
     # --------------------------------------------------------- 4. training
     # 20 bf16 steps at B=1280, timed in runs of 5 (before the CPU recompute
@@ -509,9 +502,7 @@ def main(argv=None) -> int:
     _, _, params, _, batch, anchors = benches["bfloat16"]
     rows = params["node_embed"].shape[0]
     timed = {}
-    for name, ids, plan in (
-            ("neigh", neigh_ids(batch, anchors), batch["neigh_plan"]),
-            ("cc", batch["cc_ids"], batch["cc_plan"])):
+    for name, ids, plan in bench_plans(batch, anchors):
         g = torch.randn(ids.numel(), D, generator=gen,
                         device=dev).to(torch.bfloat16)
         err, ok = segment_check(E, g, ids, plan, rows)
@@ -532,30 +523,34 @@ def main(argv=None) -> int:
         p1 = event_ms(plain, 3)
         k1 = event_ms(kernel, 50)
         l1 = event_ms(library, 20)
+        k_dev = device_times(kernel)
+        l_dev = device_times(library)
         l2 = event_ms(library, 20)
         k2 = event_ms(kernel, 50)
         p2 = event_ms(plain, 3)
-        T, W = plan.pos.shape
+        bound = segment_bound_ms(g, plan, rows)
         n_real = int((plan.local < E.TABLE_BLOCK).sum())
-        n_bytes = (g.numel() * 2 + 2 * T * W * 4 + T * 4 + rows * D * 2)
-        s_bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
-        s_ops_ms = n_real * D / PEAK_FP32_FLOPS * 1e3
+        ops_ms = n_real * D / PEAK_FP32_FLOPS * 1e3
         timed[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                           library_ms=min(l1, l2),
-                           bound_ms=max(s_bytes_ms, s_ops_ms),
-                           bound_by=("operations" if s_ops_ms > s_bytes_ms
-                                     else "bytes"))
+                           library_ms=min(l1, l2), bound_ms=max(bound, ops_ms),
+                           bound_by="operations" if ops_ms > bound else "bytes",
+                           device_ms=k_dev["device_ms"],
+                           span_ms=k_dev["span_ms"], call_ms=min(k1, k2),
+                           library_device_ms=l_dev["device_ms"])
         print(f"[timings] segment_matmul bf16 B={batch['cc_ids'].shape[0]} "
-              f"{name} plan ({plan_stats(ids, plan)}, {n_bytes} bytes): "
-              f"kernel {min(k1, k2)!r} ms (runs {k1!r}, {k2!r}), plain "
-              f"{min(p1, p2)!r} ms (runs {p1!r}, {p2!r}), index_add_ "
-              f"{min(l1, l2)!r} ms (runs {l1!r}, {l2!r}), bound "
-              f"{max(s_bytes_ms, s_ops_ms)!r} ms, max_abs_err {err!r}")
-    share = (timed["neigh"]["ms"] + timed["cc"]["ms"]) / step_ms
-    print(f"[timings] segment_matmul share of a bf16 step: "
-          f"{timed['neigh']['ms'] + timed['cc']['ms']!r} ms of {step_ms!r} "
-          f"ms ({share!r}); the ratio kernel/bound at the neigh plan "
-          f"{timed['neigh']['ms'] / timed['neigh']['bound_ms']!r}")
+              f"{name} plan ({plan_stats(ids, plan)}): kernel call_ms "
+              f"{min(k1, k2)!r} (runs {k1!r}, {k2!r}), device_ms "
+              f"{k_dev['device_ms']!r}, span_ms {k_dev['span_ms']!r}, device "
+              f"activities {json.dumps(k_dev['activities'])}; plain "
+              f"{min(p1, p2)!r} ms (runs {p1!r}, {p2!r}); index_add_ call_ms "
+              f"{min(l1, l2)!r} (runs {l1!r}, {l2!r}), device_ms "
+              f"{l_dev['device_ms']!r}; bound {timed[name]['bound_ms']!r} ms; "
+              f"max_abs_err {err!r}")
+    share = (timed["neigh"]["device_ms"] + timed["cc"]["device_ms"]) / step_ms
+    print(f"[timings] segment_matmul share of a bf16 step: device_ms "
+          f"{timed['neigh']['device_ms'] + timed['cc']['device_ms']!r} of "
+          f"{step_ms!r} ms ({share!r}); device_ms / bound at the neigh plan "
+          f"{timed['neigh']['device_ms'] / timed['neigh']['bound_ms']!r}")
     seg_record = {"name": "segment_matmul", "route": "cuda",
                   "source": "subgnn_tpu_torch/csrc/segment_matmul.cu",
                   "replaces": "subgnn_tpu/ops/embedding.py:162",
@@ -566,7 +561,8 @@ def main(argv=None) -> int:
     for record in (dtw_record, seg_record):
         check(all(isinstance(record[k], (int, float))
                   and math.isfinite(record[k])
-                  for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+                  for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                            "device_ms", "span_ms", "call_ms")),
               f"non-finite kernel record {record}")
         check(record["launches"] > 0, f"{record['name']} was not launched "
                                       f"on its path")

@@ -144,14 +144,41 @@ def _kernel():
         from .build import load
         fn = load("segment_matmul").subgnn_segment_matmul
         fn.argtypes = ([ctypes.c_void_p] * 5
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-CHUNK = 128  # plan slots per warp in the kernel (csrc/segment_matmul.cu)
+KERNEL_WARPS = 16        # warps per thread block of the kernel
+KERNEL_MIN_BLOCKS = 264  # two blocks for each of an H100's 132 SMs
+
+
+def kernel_slots_per_warp(n_slots: int) -> int:
+    """Plan slots per warp of the kernel for a plan of `n_slots` slots: the
+    most of 64, 32 and 16 that still gives KERNEL_MIN_BLOCKS blocks, else 8.
+    The partition depends on the plan's size alone."""
+    for sw in (64, 32, 16):
+        if -(-n_slots // (KERNEL_WARPS * sw)) >= KERNEL_MIN_BLOCKS:
+            return sw
+    return 8
+
+
+# the kernel's ticket words per (device, stream): one int64 a table row,
+# allocated zeroed once and left zero by every launch, so calls on one
+# stream, which run one after another, share them
+_tickets: dict = {}
+
+
+def _ticket_words(dev: torch.device, stream, rows: int) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < rows:
+        tickets = _tickets[key] = torch.zeros(rows, dtype=torch.int64,
+                                              device=dev)
+    return tickets
 
 
 def _check(g, plan):
@@ -199,25 +226,24 @@ def segment_matmul(g: torch.Tensor, plan: GatherPlan,
     if D not in (32, 64, 128, 256):
         raise ValueError(f"segment_matmul kernel takes D of 32, 64, 128 or "
                          f"256; got {D}")
-    if W % CHUNK:
-        raise ValueError(f"tile width {W} is not a multiple of {CHUNK}")
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be contiguous and 16-byte aligned")
     if out_rows < plan.n_rows:
         raise ValueError(f"out_rows {out_rows} < plan.n_rows {plan.n_rows}")
     out = torch.empty(out_rows, D, dtype=g.dtype, device=dev)
-    n_chunks = T * W // CHUNK
-    # fp32 partial rows of runs that cross a chunk edge, and per-chunk flags
-    partials = torch.empty(2 * max(n_chunks, 1), D, dtype=torch.float32,
-                           device=dev)
-    flags = torch.empty(max(n_chunks, 1), dtype=torch.int32, device=dev)
+    sw = kernel_slots_per_warp(T * W)
+    n_blocks = max(-(-T * W // (KERNEL_WARPS * sw)), 1)
+    # fp32 partial rows: two a kernel block, for runs that cross its edges
+    partials = torch.empty(2 * n_blocks, D, dtype=torch.float32, device=dev)
     fn = _kernel()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        tickets = _ticket_words(dev, stream, out_rows)
         err = fn(g.data_ptr(), plan.pos.data_ptr(), plan.local.data_ptr(),
                  plan.block.data_ptr(), out.data_ptr(), n_ids, out_rows, T, W,
-                 D, int(g.dtype == torch.bfloat16), partials.data_ptr(),
-                 flags.data_ptr(), stream)
+                 D, int(g.dtype == torch.bfloat16), sw, partials.data_ptr(),
+                 partials.numel() * 4, tickets.data_ptr(), tickets.numel(),
+                 stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_matmul kernel launch failed: "
                            f"cudaError_t {err}")

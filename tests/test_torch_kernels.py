@@ -69,8 +69,12 @@ def test_dtw_kernel_rejects_what_it_does_not_take(cuda):
 # round to neighbouring bf16 values).
 
 def _segment_case(rng, case, D):
+    """(ids, n_rows, extra padding tiles, g, tile width). The kernel cuts
+    the flat slot array into blocks of 16 warps of 8, 16, 32 or 64 slots
+    (128 to 1024 slots; embedding.kernel_slots_per_warp), so slot 1024 is a
+    block edge at every size."""
     from subgnn_tpu_torch.ops.embedding import TABLE_BLOCK, TILE_WIDTH
-    n_rows, extra = 1000, 0
+    n_rows, extra, width = 1000, 0, TILE_WIDTH
     if case == "uniform":
         ids = rng.integers(0, n_rows, (64, 3, 45))
     elif case == "pad_heavy":
@@ -83,8 +87,20 @@ def _segment_case(rng, case, D):
     elif case == "padding_tiles":
         ids = rng.integers(0, 3 * TABLE_BLOCK, 2000)
         n_rows, extra = 3 * TABLE_BLOCK, 5
+    elif case == "many_blocks":             # one run over 20 kernel blocks
+        ids = np.full(20 * TILE_WIDTH, 300)
+    elif case == "block_edge_start":        # row 4's run starts at slot 1024
+        ids = rng.permutation(np.r_[np.full(1024, 3), np.full(300, 4),
+                                    rng.integers(200, n_rows, 900)])
+    elif case == "pad_straddle":            # slots 1000-1151 pad, edge at 1024
+        ids = np.r_[rng.integers(0, TABLE_BLOCK, 1000),
+                    rng.integers(TABLE_BLOCK, 2 * TABLE_BLOCK, 700)]
+        width = 384
+    elif case == "small_plan":              # 64 slots, under one block
+        ids = np.array([5, 5, 3, 90, 90, 90, 17])
+        n_rows, width = 100, 64
     g = rng.normal(size=(ids.size, D)).astype(np.float32)
-    return ids, n_rows, extra, g
+    return ids, n_rows, extra, g, width
 
 
 def _row_tol(g, ids, out_rows, plain):
@@ -100,14 +116,21 @@ def _row_tol(g, ids, out_rows, plain):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["uniform", "pad_heavy", "one_row",
-                                  "only_pad", "padding_tiles"])
+                                  "only_pad", "padding_tiles", "many_blocks",
+                                  "block_edge_start", "pad_straddle",
+                                  "small_plan"])
 @pytest.mark.parametrize("D,dtype", [
     (128, torch.float32), (128, torch.bfloat16), (32, torch.bfloat16),
-    (256, torch.float32)])
-def test_segment_matmul_kernel_matches_plain(cuda, case, D, dtype):
+    (256, torch.float32), (32, torch.float32), (64, torch.float32),
+    (64, torch.bfloat16), (256, torch.bfloat16)])
+@pytest.mark.parametrize("sw", [8, 16, 32, 64])
+def test_segment_matmul_kernel_matches_plain(cuda, monkeypatch, case, D,
+                                             dtype, sw):
     from subgnn_tpu_torch.ops import embedding as E
     rng = np.random.default_rng(sum(map(ord, case)) * 1000 + D)
-    ids, n_rows, extra, g_np = _segment_case(rng, case, D)
+    ids, n_rows, extra, g_np, width = _segment_case(rng, case, D)
+    monkeypatch.setattr(E, "TILE_WIDTH", width)
+    monkeypatch.setattr(E, "kernel_slots_per_warp", lambda n_slots: sw)
     plan = E.make_gather_plan(ids, n_rows,
                               E.tiles_needed(ids, n_rows) + extra).to(cuda)
     g = torch.as_tensor(g_np, device=cuda).to(dtype)
@@ -123,6 +146,22 @@ def test_segment_matmul_kernel_matches_plain(cuda, case, D, dtype):
     err = (got.float() - ref.float()).abs()
     assert (err <= _row_tol(g, ids, out_rows, ref)).all()
     assert (got[n_rows:] == 0).all()
+    assert not any(t.any() for t in E._tickets.values())  # left 0
+
+
+def test_segment_matmul_kernel_partition_depends_on_plan_size_alone():
+    from subgnn_tpu_torch.ops import embedding as E
+    # the bench's four plans (tiles of 512 slots): bf16 B=1280 neigh and cc,
+    # fp32 B=512 neigh and cc
+    sizes = {767: 64, 150: 16, 301: 32, 100: 8, 1: 8}
+    for tiles, sw in sizes.items():
+        assert E.kernel_slots_per_warp(tiles * 512) == sw
+    for n_slots in range(1, 600_000, 997):
+        sw = E.kernel_slots_per_warp(n_slots)
+        blocks = -(-n_slots // (E.KERNEL_WARPS * sw))
+        assert sw == 8 or blocks >= E.KERNEL_MIN_BLOCKS
+        assert sw == 64 or -(-n_slots // (E.KERNEL_WARPS * 2 * sw)) \
+            < E.KERNEL_MIN_BLOCKS
 
 
 @pytest.mark.gpu
