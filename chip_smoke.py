@@ -9,7 +9,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 report;
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card: DTW at serving shapes (G=2 groups x 64*15 comps x 150
-                pool patches, ragged and empty rows), max abs error <= 1e-5;
+                pool patches, ragged and empty rows) and at a long case
+                (Lc=300, a few comps of 257-300 nodes), max abs error <=
+                1e-5, and whether the bits are equal is printed;
                 segment_matmul (the embedding-table gradient) at the bench's
                 plans (B=1280 bf16 and B=512 fp32, neigh and cc) and three
                 edge cases (every id on one row, only PAD ids, padding
@@ -61,11 +63,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 
-# H100 SXM published peak (NVIDIA data sheet): fp32 outside the tensor
-# cores (the HBM3 bandwidth is kernel_times.PEAK_HBM_BYTES)
-PEAK_FP32_FLOPS = 67e12
-DTW_FLOPS_PER_CELL = 8      # max, min, 2 adds, 1 div, 1 sub, 3-way min
-DTW_TOL = 1e-5              # same fp32 operations in the same order
+DTW_TOL = 1e-5              # the same fp32 operations on each cell
 CPU_GPU_REL_TOL = 1e-3      # float32 sums in another order on each device
 SEG_REL_TOL = 1e-5          # fp32 sums of the same terms in another order
 BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative (8-bit significand)
@@ -181,9 +179,9 @@ def main(argv=None) -> int:
                                         card, flagship_hparams)
     from subgnn_tpu_torch.config import HParams, RunConfig
     from subgnn_tpu_torch.data.dataset import initialize_cc_ids
-    from subgnn_tpu_torch.kernel_times import (PEAK_HBM_BYTES, bench_plans,
-                                               device_times, event_ms,
-                                               segment_bound_ms)
+    from subgnn_tpu_torch.kernel_times import (PEAK_FP32_FLOPS, bench_plans,
+                                               device_times, dtw_bound_ms,
+                                               event_ms, segment_bound_ms)
     from subgnn_tpu_torch.models.subgnn import tree_to
     from subgnn_tpu_torch.ops import build
     from subgnn_tpu_torch.ops import dtw as kdtw
@@ -210,24 +208,48 @@ def main(argv=None) -> int:
     # ---------------------------------------------------- 2. kernel vs plain
     G, nc, na, Lc, La = 2, REQUEST_SIZE * SUBGRAPH_NODES, 150, 15, 25
 
-    def ragged(rows, width, empty_frac):
-        lens = rng.integers(1, width + 1, rows).astype(np.int32)
-        lens[rng.random(rows) < empty_frac] = 0
+    def ragged(rows, width, empty_frac, gen=rng):
+        lens = gen.integers(1, width + 1, rows).astype(np.int32)
+        lens[gen.random(rows) < empty_frac] = 0
         seqs = np.zeros((rows, width), np.float32)
         for i in range(rows):
-            seqs[i, :lens[i]] = np.sort(rng.integers(0, 40, lens[i]))
+            seqs[i, :lens[i]] = np.sort(gen.integers(0, 40, lens[i]))
         return seqs, lens
 
+    def dtw_check(arrays, G, nc, na):
+        """Kernel vs plain on the card: (max abs err, bits equal)."""
+        kin = [torch.as_tensor(np.ascontiguousarray(x), device=dev)
+               for x in arrays]
+        got = kdtw.dtw_distance_grouped(*kin, G, nc, na)
+        ref = kdtw.dtw_distance_grouped_torch(*kin, G, nc, na)
+        torch.cuda.synchronize()
+        return float((got - ref).abs().max()), torch.equal(got, ref)
+
+    # the serving shape, then a long case: 2 x 64 comps of up to 300 nodes
+    # (6 of them 257-300, past what the first kernel took) x 150 anchors,
+    # drawn from a generator of their own (the serving phase's data below
+    # comes from `rng`)
     cs, cl = ragged(G * nc, Lc, 0.3)
     as_, al = ragged(G * na, La, 0.05)
-    kin = [torch.as_tensor(x, device=dev) for x in (cs, cl, as_, al)]
-    got = kdtw.dtw_distance_grouped(*kin, G, nc, na)
-    ref = kdtw.dtw_distance_grouped_torch(*kin, G, nc, na)
-    torch.cuda.synchronize()
-    max_abs_err = float((got - ref).abs().max())
-    print(f"[kernel] dtw_grouped vs plain at G={G} nc={nc} na={na} Lc={Lc} "
-          f"La={La}: max_abs_err={max_abs_err!r} (tol {DTW_TOL})")
-    check(max_abs_err <= DTW_TOL, "DTW kernel disagrees with its plain version")
+    lrng = np.random.default_rng(args.seed + 2)
+    long_cs = np.zeros((2 * 64, 300), np.float32)
+    long_cl = lrng.integers(1, 65, 2 * 64).astype(np.int32)
+    long_cl[lrng.random(2 * 64) < 0.2] = 0
+    long_cl[lrng.choice(2 * 64, 6, replace=False)] = lrng.integers(257, 301, 6)
+    for i, n in enumerate(long_cl):
+        long_cs[i, :n] = np.sort(lrng.integers(0, 40, n))
+    max_abs_err = 0.0
+    for what, arrays, shape in (
+            ("serving", (cs, cl, as_, al), (G, nc, na)),
+            ("long", (long_cs, long_cl, as_, al), (2, 64, na))):
+        err, same = dtw_check(arrays, *shape)
+        max_abs_err = max(max_abs_err, err)
+        print(f"[kernel] dtw_grouped vs plain, {what} case (G, nc, na) = "
+              f"{shape}, Lc={arrays[0].shape[1]} La={La}, comp lengths "
+              f"{int(arrays[1].min())}-{int(arrays[1].max())}: max_abs_err="
+              f"{err!r} (tol {DTW_TOL}), bits equal {same}")
+        check(err <= DTW_TOL, f"DTW kernel disagrees with its plain version "
+                              f"({what} case)")
 
     # segment_matmul at the bench's plans (the training path's own inputs:
     # the batches of phase 4) and at edge cases
@@ -337,10 +359,7 @@ def main(argv=None) -> int:
         *arrays, Gr, ncr, nar = seqs
         rin = [torch.as_tensor(np.ascontiguousarray(x), device=dev)
                for x in arrays]
-        got = kdtw.dtw_distance_grouped(*rin, Gr, ncr, nar)
-        ref = kdtw.dtw_distance_grouped_torch(*rin, Gr, ncr, nar)
-        torch.cuda.synchronize()
-        req_err = float((got - ref).abs().max())
+        req_err, req_same = dtw_check(arrays, Gr, ncr, nar)
         check(req_err <= DTW_TOL, "DTW kernel disagrees at request inputs")
         max_abs_err = max(max_abs_err, req_err)
 
@@ -357,19 +376,16 @@ def main(argv=None) -> int:
         p2 = event_ms(plain, 3)
         ms, plain_ms = min(k1, k2), min(p1, p2)
 
-        cl_r = arrays[1].astype(np.int64).reshape(Gr, ncr)
-        al_r = arrays[3].astype(np.int64).reshape(Gr, nar)
-        cells = int(sum((cl_r[g][:, None] * al_r[g][None, :]).sum()
-                        for g in range(Gr)))
         n_bytes = sum(x.nbytes for x in arrays) + Gr * ncr * nar * 4
-        ops_ms = cells * DTW_FLOPS_PER_CELL / PEAK_FP32_FLOPS * 1e3
-        bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
+        bound_ms, bound_by, cells = dtw_bound_ms(arrays[1], arrays[3], Gr,
+                                                 ncr, nar, n_bytes)
+        nonempty = int((arrays[1].reshape(Gr, ncr) > 0).sum())
         print(f"[timings] dtw_grouped at request inputs (pairs "
-              f"{Gr * ncr * nar}, DP cells {cells}): kernel {ms!r} ms "
-              f"(runs {k1!r}, {k2!r}), plain {plain_ms!r} ms (runs {p1!r}, "
-              f"{p2!r}), bound {bound_ms!r} ms, max_abs_err {req_err!r}; "
-              f"device_ms {dev_t['device_ms']!r}, span_ms "
+              f"{Gr * ncr * nar}, non-empty comps {nonempty} of {Gr * ncr}, "
+              f"DP cells {cells}): kernel {ms!r} ms (runs {k1!r}, {k2!r}), "
+              f"plain {plain_ms!r} ms (runs {p1!r}, {p2!r}), bound "
+              f"{bound_ms!r} ms ({bound_by}), max_abs_err {req_err!r}, bits "
+              f"equal {req_same}; device_ms {dev_t['device_ms']!r}, span_ms "
               f"{dev_t['span_ms']!r}, device activities "
               f"{json.dumps(dev_t['activities'])}")
 
@@ -378,8 +394,8 @@ def main(argv=None) -> int:
                   "replaces": "subgnn_tpu/ops/dtw_pallas.py:25",
                   "launches": launches, "max_abs_err": max_abs_err,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                  "library_ms": None, "device_ms": dev_t["device_ms"],
+                  "bound_by": bound_by, "library_ms": None,
+                  "bits_equal": req_same, "device_ms": dev_t["device_ms"],
                   "span_ms": dev_t["span_ms"], "call_ms": ms}
 
     # --------------------------------------------------------- 4. training

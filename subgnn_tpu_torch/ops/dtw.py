@@ -5,10 +5,13 @@ plain PyTorch version.
 subgnn_tpu/ops/dtw_pallas.py:_dtw_kernel together with the chunked pair
 gather around it (subgnn_tpu/precompute/dtw.py:_all_chunks_grouped): one
 launch of csrc/dtw.cu covers every (comp, anchor) pair of G same-shaped
-products, each warp reading its pair's sequences straight from the
-per-group arrays. On the H100 the kernel is fp32-compute and latency bound
-(about 8 flops with one IEEE division per DP cell, la+lb-1 dependent steps
-per pair); see the source for the design.
+products. A block takes one comp and up to 8 warps of its anchors
+(`kernel_block_warps`), and writes zeros and exits if the comp is empty;
+each thread runs one pair with the DP column of a side no longer than the
+register bound (16 to 64) in registers; a pair whose sequences are both
+longer, or hold a value outside [0, 2^60 - 1], takes a whole warp. On the
+H100 the kernel is bound by fp32 operations (about 8 flops with one IEEE
+division per DP cell); see the source for the design.
 
 A CPU tensor takes the plain version (`dtw_distance_grouped_torch`); a CUDA
 tensor launches the kernel or raises. The plain version is also what the
@@ -21,6 +24,10 @@ import ctypes
 import torch
 
 _PLAIN_CHUNK = 1 << 16  # pairs per plain-version chunk (bounds memory)
+KERNEL_MIN_BLOCKS = 264  # two kernel blocks for each of an H100's 132 SMs
+# csrc/dtw.cu's warp path keeps La floats a warp of the 227 KB a block may
+# share, so La may not exceed MAX_STRIP_LA
+MAX_STRIP_LA = 232448 // 4
 
 
 def dtw_distance_torch(a: torch.Tensor, la: torch.Tensor,
@@ -98,10 +105,23 @@ def _kernel():
         lib = load("dtw")
         fn = lib.subgnn_dtw_grouped
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = fn
     return _lib
+
+
+def kernel_block_warps(n_comps: int, na: int) -> int:
+    """Warps of anchors a kernel block may take (csrc/dtw.cu splits a
+    comp's anchors evenly over the fewest blocks of at most this many):
+    the most of 8, 4, 2 that still gives KERNEL_MIN_BLOCKS blocks for
+    `n_comps` (G*nc) comps, else 1. A grid of few comps (long ones, say)
+    so spreads its pairs over more SMs; it depends on the shapes alone."""
+    need = -(-na // 32)
+    for warps in (8, 4, 2):
+        if n_comps * -(-need // warps) >= KERNEL_MIN_BLOCKS:
+            return warps
+    return 1
 
 
 def _check(comp_seqs, comp_lens, anchor_seqs, anchor_lens, G, nc, na):
@@ -134,7 +154,7 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
     (G*nc,) int32; anchor_seqs (G*na, La), anchor_lens (G*na,). Pair p maps
     to group g = p // (nc*na), comp g*nc + r//na, anchor g*na + r%na with
     r = p % (nc*na). Lengths must not exceed the padded widths. CUDA tensors
-    launch csrc/dtw.cu (Lc <= 256) and add one to
+    launch csrc/dtw.cu once (any Lc, La <= MAX_STRIP_LA) and add one to
     `dtw_distance_grouped.launches`; CPU tensors run the plain version.
     """
     _check(comp_seqs, comp_lens, anchor_seqs, anchor_lens, G, nc, na)
@@ -145,9 +165,9 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"dtw_distance_grouped: unsupported device {dev}")
     Lc, La = comp_seqs.shape[1], anchor_seqs.shape[1]
-    if Lc > 256:
-        raise ValueError(f"dtw kernel takes comp sequences up to 256 long, "
-                         f"got {Lc}")
+    if La > MAX_STRIP_LA:
+        raise ValueError(f"dtw kernel takes anchor sequences up to "
+                         f"{MAX_STRIP_LA} long, got {La}")
     out = torch.empty(G * nc * na, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -156,7 +176,8 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(comp_seqs.data_ptr(), comp_lens.data_ptr(),
                  anchor_seqs.data_ptr(), anchor_lens.data_ptr(),
-                 out.data_ptr(), G, nc, na, Lc, La, stream)
+                 out.data_ptr(), G, nc, na, Lc, La,
+                 kernel_block_warps(G * nc, na), stream)
     if err != 0:
         raise RuntimeError(f"dtw kernel launch failed: cudaError_t {err}")
     dtw_distance_grouped.launches += 1

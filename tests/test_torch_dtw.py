@@ -41,11 +41,16 @@ def _plain(a, la, b, lb):
                                    torch.from_numpy(lb)).numpy()
 
 
-@pytest.mark.parametrize("La,Lb", [(10, 7), (7, 10), (25, 25), (15, 25)])
+@pytest.mark.parametrize("La,Lb", [(10, 7), (7, 10), (25, 25), (15, 25),
+                                   (300, 25)])
 def test_plain_dtw_matches_jax_scan_and_host(La, Lb):
+    """(300, 25): a comp longer than the 256 the first Hopper kernel took,
+    16 pairs to keep the host oracle short."""
     rng = np.random.default_rng(La * 100 + Lb)
-    a, la, b, lb = _ragged_pairs(rng, 48, La, Lb)
+    a, la, b, lb = _ragged_pairs(rng, 16 if La > 256 else 48, La, Lb)
     la[0], lb[1] = 0, 0          # explicit empty rows on each side
+    la[2] = La                   # and a full-length one
+    a[2] = np.sort(rng.integers(0, 12, La))
     got = _plain(a, la, b, lb)
     expect = np.asarray(jdtw.dtw_distance_batch(
         jnp.asarray(a), jnp.asarray(la), jnp.asarray(b), jnp.asarray(lb)))

@@ -31,34 +31,115 @@ def _ragged(rng, rows, width, empty_frac):
     return seqs, lens
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("Lc,La", [(15, 25), (1, 3), (32, 32), (40, 25),
-                                   (100, 30), (200, 8)])
-def test_dtw_kernel_matches_plain(cuda, Lc, La):
-    rng = np.random.default_rng(Lc * 1000 + La)
-    G, nc, na = 2, 37, 23
+# (Lc, La, G, nc, na): csrc/dtw.cu holds a comp of up to Lc's register
+# bound (16, 32 or 64) in registers, walks a longer comp against each
+# anchor that fits the bound, and gives a warp to each pair where both are
+# longer (`_ragged_case` puts lengths 64 and 65 on both sides wherever the
+# widths allow)
+_DTW_CASES = {
+    "15-25": (15, 25, 2, 37, 23), "1-3": (1, 3, 2, 37, 23),
+    "32-32": (32, 32, 2, 37, 23), "40-25": (40, 25, 2, 37, 23),
+    "100-30": (100, 30, 2, 37, 23), "200-8": (200, 8, 2, 37, 23),
+    "empty_group": (15, 25, 3, 20, 40),      # group 1 has no comp at all
+    "na1": (15, 25, 2, 37, 1),
+    "na150": (15, 25, 2, 64, 150),           # the serving pool
+    "na700": (40, 25, 2, 9, 700),            # more than a block's threads
+    "register_bound": (64, 70, 2, 12, 40),   # la and lb at 64, none past
+    "past_register_bound": (65, 70, 2, 12, 40),
+    "Lc300": (300, 25, 2, 10, 30),
+    "Lc1000": (1000, 80, 1, 6, 40),
+    "La_gt_Lc": (70, 300, 2, 8, 35),
+    "La_lt_Lc": (300, 100, 2, 8, 35),
+    "G1": (15, 25, 1, 50, 23), "G3": (40, 70, 3, 25, 23),
+    # 1 x 1 pairs: every distance is one quotient, (max+1)/(min+1) - 1, over
+    # values from 0 to 2^62 and in (-1, 0); the kernel's own division takes
+    # values in [0, 2^60 - 1], a warp with IEEE division the rest
+    "division": (1, 1, 1, 1024, 2048),
+    "out_of_range": (15, 25, 2, 37, 23),    # such values in longer pairs
+}
+
+
+def _odd_values(rng, n):
+    return np.concatenate([
+        rng.integers(0, 10 ** 6, n // 4),
+        2.0 ** rng.uniform(-30, 62, n // 2),
+        -rng.random(n - n // 4 - n // 2)]).astype(np.float32)
+
+
+def _ragged_case(rng, name):
+    Lc, La, G, nc, na = _DTW_CASES[name]
     cs, cl = _ragged(rng, G * nc, Lc, 0.2)
-    cl[0] = Lc  # a full-length row
     as_, al = _ragged(rng, G * na, La, 0.1)
-    args = [torch.as_tensor(x, device=cuda) for x in (cs, cl, as_, al)]
+    for seqs, lens, width in ((cs, cl, Lc), (as_, al, La)):
+        for row, n in enumerate((width, 64, 65)):  # full length, the switch
+            if row < len(lens) and n <= width:
+                lens[row] = n
+                seqs[row, :n] = np.sort(rng.integers(0, 40, n))
+    cl[-1] = al[-1] = 0                      # an empty pair on each side
+    if name == "empty_group":
+        cl[nc:2 * nc] = 0
+    if name == "division":
+        cs[:, 0] = _odd_values(rng, len(cs))
+        as_[:, 0] = _odd_values(rng, len(as_))
+    if name == "out_of_range":
+        for seqs, lens in ((cs, cl), (as_, al)):
+            for row in rng.choice(len(lens) - 1, 4, replace=False):
+                seqs[row, rng.integers(0, lens[row] or 1)] = rng.choice(
+                    [-0.5, 2.0 ** 61])
+    return (cs, cl, as_, al), G, nc, na
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lc,La", [
+    pytest.param(*_DTW_CASES[name][:2], id=name) for name in _DTW_CASES])
+def test_dtw_kernel_matches_plain(cuda, request, Lc, La):
+    name = request.node.callspec.id
+    rng = np.random.default_rng(sum(map(ord, name)) * 1000 + Lc)
+    arrays, G, nc, na = _ragged_case(rng, name)
+    cl, al = arrays[1], arrays[3]
+    args = [torch.as_tensor(x, device=cuda) for x in arrays]
     before = kdtw.dtw_distance_grouped.launches
     got = kdtw.dtw_distance_grouped(*args, G, nc, na)
-    assert kdtw.dtw_distance_grouped.launches == before + 1
+    again = kdtw.dtw_distance_grouped(*args, G, nc, na)
+    assert kdtw.dtw_distance_grouped.launches == before + 2
     ref = kdtw.dtw_distance_grouped_torch(*args, G, nc, na)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)          # deterministic: same bits
     empty = (cl.reshape(G, nc, 1) == 0) | (al.reshape(G, 1, na) == 0)
+    assert empty.any()
     assert (got.cpu().numpy().reshape(G, nc, na)[empty] == 0).all()
 
 
 @pytest.mark.gpu
 def test_dtw_kernel_rejects_what_it_does_not_take(cuda):
-    cs = torch.zeros(4, 300, device=cuda)
+    cs = torch.zeros(4, 300, device=cuda)  # a width the first kernel refused
     cl = torch.zeros(4, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        kdtw.dtw_distance_grouped(cs, cl, cs, cl, 1, 4, 4)
+    got = kdtw.dtw_distance_grouped(cs, cl, cs, cl, 1, 4, 4)
+    assert got.shape == (16,) and (got == 0).all()
+    long_anchors = torch.zeros(4, kdtw.MAX_STRIP_LA + 1, device=cuda)
+    with pytest.raises(ValueError, match=str(kdtw.MAX_STRIP_LA)):
+        kdtw.dtw_distance_grouped(cs, cl, long_anchors, cl, 1, 4, 4)
     with pytest.raises(ValueError):
         kdtw.dtw_distance_grouped(cs[:, :8], cl.cpu(), cs[:, :8], cl, 1, 4, 4)
+    with pytest.raises(TypeError):
+        kdtw.dtw_distance_grouped(cs, cl.long(), cs, cl, 1, 4, 4)
+
+
+def test_dtw_kernel_block_warps_depend_on_grid_size_alone():
+    # chip_smoke's serving request and kernel_times' dense set (1920 comps
+    # x 150 anchors), its long set (32 comps), the pool of the configs (50)
+    assert kdtw.kernel_block_warps(1920, 150) == 8
+    assert kdtw.kernel_block_warps(32, 150) == 1
+    assert kdtw.kernel_block_warps(66, 256) == 2
+    for n_comps in (1, 7, 33, 132, 264, 1000):
+        for na in (1, 31, 32, 150, 700):
+            w = kdtw.kernel_block_warps(n_comps, na)
+            blocks = n_comps * -(-(-(-na // 32)) // w)
+            assert w in (1, 2, 4, 8)
+            assert w == 1 or blocks >= kdtw.KERNEL_MIN_BLOCKS
+            assert w == 8 or n_comps * -(-(-(-na // 32)) // (2 * w)) \
+                < kdtw.KERNEL_MIN_BLOCKS
 
 
 # ------------------------------------------------------------ segment_matmul
