@@ -18,13 +18,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 tiles), per row |kernel - plain| <= 1e-5 * sum |g| over the
                 row's slots (+ one bf16 ulp of the plain value for bf16; the
                 output takes g's dtype, fp32 or bf16);
+                segment_matmul's general path at D = 8, 96, 100 and 384
+                (fp32 and bf16) at the bf16 neigh plan, same tolerance;
   3. serving  — the port's SubGNNPipeline.predict at the flagship widths
                 (D=128, 2 layers, all channels, float32) on a synthetic
-                8192-node, average-degree-16 graph: 4 requests of 64 novel
-                15-node subgraphs. Logits must be finite, the DTW kernel must
-                launch on every request, and one request recomputed by the
-                port on the CPU must agree;
-  4. training — the bench's training step (subgnn_tpu_torch/bench.py) at
+                8192-node, average-degree-16 graph: the full precompute
+                (its one-time 8192^2 host BFS and stage times printed), then
+                4 requests of 64 novel 15-node subgraphs. Logits must be
+                finite, the DTW kernel must launch on every request, and one
+                request recomputed by the port on the CPU must agree;
+  4. dataset  — the full-dataset path on the card: a task of its own on the
+                same graph (384 train / 128 val / 128 test subgraphs of 15
+                nodes, D=128 embeddings, the serving task's
+                shortest_path_matrix.npy shared through
+                RunConfig.shortest_paths_path_override): precompute() with
+                its stage times and exactly 2 x 3 DTW launches (one per split
+                and side), the structure sims against the same stage on the
+                CPU (atol 1e-6, bits equal printed), then Trainer.fit for 2
+                epochs on split_data / sample_anchors / eval_cc_tables
+                (finite val metrics, a checkpoint, segment_matmul launched
+                twice a step). Then the repository's mini fixture (a D=8
+                embedding table, off segment_matmul's vector set) through
+                the same path for its config's 3 epochs, against the same run
+                on the CPU (losses rel 1e-3); and shortest_path_matrix's
+                device BFS on a 4096-node seeded graph against
+                shortest_path_rows at 512 sampled sources (equal);
+  5. training — the bench's training step (subgnn_tpu_torch/bench.py) at
                 the flagship widths: 20 bf16 steps at B=1280 (finite losses,
                 every leaf that gets a gradient changes, segment_matmul
                 launched exactly twice per step), with their mpn_edges_per_s;
@@ -32,7 +51,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 (loss rel 1e-4, every gradient leaf atol 1e-4 x max|leaf|);
                 Trainer.fit for 2 epochs on build_training_fixture at the
                 flagship widths (finite val metrics, a top-k checkpoint);
-  5. timings  — cold/warm per-request stage timings; each kernel's time
+  6. timings  — cold/warm per-request stage timings; each kernel's time
                 against its plain version's, its lower bound on the card and
                 (segment_matmul) index_add_, at the main path's own inputs.
                 Each kernel record holds `ms` (= `call_ms`: CUDA events
@@ -44,7 +63,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 subgnn_tpu_torch/kernel_times.py has the helpers.
 Each path's launch counts are zeroed just before it and read just after:
 the DTW record's launches are the 4 serving requests', segment_matmul's are
-Trainer.fit's (the 20 bf16 steps are counted on their own, for their check).
+Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset
+phase's runs are counted on their own, for their checks).
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, and when run outside a checkout of the repository.
@@ -73,6 +93,11 @@ N_BF16_STEPS, BF16_RUNS = 20, 4
 
 N_NODES, AVG_DEGREE = 8192, 16
 N_REQUESTS, REQUEST_SIZE, SUBGRAPH_NODES = 4, 64, 15
+DATASET_SPLITS = {"train": 384, "val": 128, "test": 128}
+ANY_WIDTHS = (8, 96, 100, 384)   # segment_matmul's general path
+STRUC_SIM_TOL = 1e-6             # structure sims, card vs CPU
+BFS_NODES, BFS_SOURCES = 4096, 512
+MINI = HERE / "tests" / "fixtures" / "mini_multilabel"
 
 
 def check(cond, msg):
@@ -100,6 +125,21 @@ def grow_subgraph(graph, rng, size):
     return nodes[:size]
 
 
+def write_split_task(task: Path, graph, rng, counts):
+    """Subgraph TSV with counts[split] rows of SUBGRAPH_NODES nodes each
+    (0-based ids, labels A/B/C) and D=128 embeddings in task/."""
+    task.mkdir(parents=True, exist_ok=True)
+    rows = []
+    splits = [s for s, n in counts.items() for _ in range(n)]
+    for i, split in enumerate(splits):
+        sg = grow_subgraph(graph, rng, SUBGRAPH_NODES)
+        rows.append("-".join(str(v - 1) for v in sg)
+                    + f"\t{'ABC'[i % 3]}\t{split}")
+    (task / "subgraphs.pth").write_text("\n".join(rows) + "\n")
+    emb = rng.normal(size=(graph.n_nodes, 128)).astype(np.float32)
+    np.save(task / "gin_embeddings.npy", emb)
+
+
 def write_dataset(root: Path, rng):
     """Synthetic task dir in the reference's on-disk format: edge list
     (0-based ids), subgraph TSV with train/val/test rows, embeddings."""
@@ -110,15 +150,36 @@ def write_dataset(root: Path, rng):
     edges = edges[edges[:, 0] != edges[:, 1]]
     np.savetxt(task / "edge_list.txt", edges - 1, fmt="%d")
     graph = CSRGraph.from_edgelist(task / "edge_list.txt")
-    rows = []
-    for i, split in enumerate(["train"] * 8 + ["val"] * 4 + ["test"] * 4):
-        sg = grow_subgraph(graph, rng, SUBGRAPH_NODES)
-        rows.append("-".join(str(v - 1) for v in sg)
-                    + f"\t{'ABC'[i % 3]}\t{split}")
-    (task / "subgraphs.pth").write_text("\n".join(rows) + "\n")
-    emb = rng.normal(size=(graph.n_nodes, 128)).astype(np.float32)
-    np.save(task / "gin_embeddings.npy", emb)
+    write_split_task(task, graph, rng, {"train": 8, "val": 4, "test": 4})
     return graph
+
+
+def fit_dataset(pipe, ckpt_dir, seed, tag):
+    """Trainer.fit on the pipeline's precomputed splits: (last metrics,
+    trainer, segment_matmul launches)."""
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.loop import Trainer
+    model, params, state = pipe.build_model(seed)
+    trainer = Trainer(model, pipe.hp, ckpt_dir=str(ckpt_dir),
+                      eval_cc_tables=pipe.eval_cc_tables(), device=pipe.device)
+    anchors = pipe.sample_anchors(seed)
+    E.segment_matmul.launches = 0
+    last = trainer.fit(params, state, pipe.split_data("train"),
+                       pipe.split_data("val"), anchors, seed=seed,
+                       log_fn=lambda m: print(f"[dataset] {tag} fit {m}"))
+    return last, trainer, E.segment_matmul.launches
+
+
+def check_fit(last, trainer, launches, tag):
+    for k in ("train_loss", "val_loss", "val_micro_f1", "val_acc",
+              "val_auroc"):
+        check(math.isfinite(last[k]), f"{tag} Trainer.fit: {k} = {last[k]!r}")
+    best = trainer.ckpt.best_path
+    check(best is not None and best.exists(),
+          f"{tag} Trainer.fit wrote no checkpoint")
+    check(launches == 2 * trainer.global_step,
+          f"{tag} Trainer.fit: {launches} segment_matmul launches in "
+          f"{trainer.global_step} steps")
 
 
 def dtw_inputs(graph, cc_ids, pool_cache):
@@ -158,6 +219,127 @@ def segment_check(E, g, ids, plan, out_rows):
 def plan_stats(ids, plan):
     return (f"ids {ids.numel()}, tiles {plan.pos.shape[0]}, PAD ids "
             f"{int((ids == 0).sum())}, table rows {plan.n_rows}")
+
+
+def dataset_phase(root: Path, graph, hp, rng, seed: int, dev):
+    """Phase 4: precompute + Trainer.fit on a task of their own (the
+    serving task's graph and path matrix), the D=8 mini fixture, and the
+    device BFS."""
+    import shutil
+
+    import torch
+    from subgnn_tpu_torch.config import HParams, RunConfig, \
+        load_commented_json
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    from subgnn_tpu_torch.ops import dtw as kdtw
+    from subgnn_tpu_torch.precompute.shortest_paths import (
+        shortest_path_matrix, shortest_path_rows)
+    from subgnn_tpu_torch.precompute.similarities import \
+        compute_structure_similarities
+    from subgnn_tpu_torch.train.runner import SPLITS, SubGNNPipeline
+
+    t0 = time.perf_counter()
+    write_split_task(root / "dataset", graph, rng, DATASET_SPLITS)
+    serving = root / "synthetic"
+    rc = RunConfig(task="dataset", project_root=root,
+                   graph_path_override=serving / "edge_list.txt",
+                   shortest_paths_path_override=(serving /
+                                                 "shortest_path_matrix.npy"))
+    pipe = SubGNNPipeline(rc, hp.replace(max_epochs=2), device="cuda").load()
+    print(f"[dataset] task written and loaded: "
+          f"{ {s: len(pipe.subgraphs[s]) for s in SPLITS} } subgraphs of "
+          f"{SUBGRAPH_NODES} nodes, cc_ids "
+          f"{ {s: pipe.cc_ids[s].shape for s in SPLITS} } "
+          f"({time.perf_counter() - t0:.2f}s)")
+    kdtw.dtw_distance_grouped.launches = 0
+    t0 = time.perf_counter()
+    pipe.precompute()
+    dtw_launches = kdtw.dtw_distance_grouped.launches
+    print(f"[dataset] precompute on the card {time.perf_counter() - t0:.2f}s, "
+          f"stages (s) {json.dumps(pipe.precompute_timings)}; dtw kernel "
+          f"launches {dtw_launches}")
+    check(dtw_launches == 2 * len(SPLITS),
+          f"dataset precompute: {dtw_launches} DTW launches, expected "
+          f"{2 * len(SPLITS)} (one per split and side)")
+    worst, same = 0.0, True
+    t0 = time.perf_counter()
+    for s in SPLITS:
+        for internal, got in ((True, pipe.int_s_sim[s]),
+                              (False, pipe.bor_s_sim[s])):
+            ref = compute_structure_similarities(
+                pipe.graph, pipe.cc_ids[s], pipe.structure_anchors,
+                internal=internal, device="cpu").astype(np.float32)
+            check(got.shape == ref.shape, f"{s} structure sims shape "
+                                          f"{got.shape} vs {ref.shape}")
+            worst = max(worst, float(np.abs(got - ref).max()))
+            same = same and np.array_equal(got, ref)
+    print(f"[dataset] structure sims, card vs CPU (3 splits x 2 sides): max "
+          f"abs diff {worst!r} (tol {STRUC_SIM_TOL}), bits equal {same} "
+          f"(CPU {time.perf_counter() - t0:.2f}s)")
+    check(worst <= STRUC_SIM_TOL, "dataset structure sims: card and CPU "
+                                  "disagree")
+    t0 = time.perf_counter()
+    last, trainer, launches = fit_dataset(pipe, root / "dataset_ckpt", seed,
+                                          "dataset")
+    check_fit(last, trainer, launches, "dataset")
+    print(f"[dataset] Trainer.fit 2 epochs x {trainer.global_step // 2} "
+          f"batches of {pipe.hp.batch_size}: val_micro_f1 "
+          f"{last['val_micro_f1']!r}, val_loss {last['val_loss']!r}, "
+          f"segment_matmul launches {launches} (2 per step); checkpoint "
+          f"{trainer.ckpt.best_path.name}; {time.perf_counter() - t0:.2f}s")
+
+    # the mini fixture: a D=8 table, on the card and on the CPU
+    mini = root / "mini_root"
+    shutil.copytree(MINI / "mini", mini / "mini")
+    mhp = HParams.from_dict(load_commented_json(MINI / "mini_config.json")
+                            ["hyperparams_fix"])
+    runs = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        mpipe = SubGNNPipeline(RunConfig(task="mini", project_root=mini),
+                               mhp, device=where).load().precompute()
+        runs[where] = fit_dataset(mpipe, mini / f"ckpt_{where}", seed,
+                                  f"mini {where}")
+        print(f"[dataset] mini fixture on {where}: table "
+              f"{mpipe.pretrained_embeds.shape}, "
+              f"{time.perf_counter() - t0:.2f}s")
+    last, trainer, launches = runs["cuda"]
+    check(mpipe.hp.node_embed_size == 8, "the mini fixture's table is not D=8")
+    check_fit(last, trainer, launches, "mini")
+    cpu_scores = runs["cpu"][1].metric_scores
+    diffs = [abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+             for a, b in zip(trainer.metric_scores, cpu_scores)
+             for k in ("train_loss", "val_loss")]
+    print(f"[dataset] mini fixture D=8, {len(trainer.metric_scores)} epochs "
+          f"on the card: val_micro_f1 {last['val_micro_f1']!r}, "
+          f"segment_matmul launches {launches} in {trainer.global_step} "
+          f"steps; losses vs the CPU run: max rel diff {max(diffs)!r} (tol "
+          f"{CPU_GPU_REL_TOL})")
+    check(len(trainer.metric_scores) == mhp.max_epochs,
+          "mini fixture: wrong number of epochs")
+    check(max(diffs) <= CPU_GPU_REL_TOL, "mini fixture: card and CPU "
+                                         "training disagree")
+
+    # the device BFS at the size `auto` still sends to the card
+    brng = np.random.default_rng(seed + 3)
+    edges = brng.integers(1, BFS_NODES + 1, (BFS_NODES * 4, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    bgraph = CSRGraph.from_edges(edges, n_nodes=BFS_NODES)
+    t0 = time.perf_counter()
+    mat = shortest_path_matrix(bgraph, backend="device", device=dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    srcs = np.sort(brng.choice(np.arange(1, BFS_NODES + 1), BFS_SOURCES,
+                               replace=False))
+    t0 = time.perf_counter()
+    rows = shortest_path_rows(bgraph, srcs)
+    t_host = time.perf_counter() - t0
+    equal = np.array_equal(mat[srcs - 1], rows)
+    print(f"[dataset] device BFS, {BFS_NODES} nodes (max hop "
+          f"{int(mat.max())}, unreached pairs {int((mat == 0).sum())}): "
+          f"{t_dev:.3f}s for all {BFS_NODES} sources; host BFS {t_host:.3f}s "
+          f"for {BFS_SOURCES}; rows equal {equal}")
+    check(equal, "device BFS disagrees with shortest_path_rows")
 
 
 def main(argv=None) -> int:
@@ -290,6 +472,22 @@ def main(argv=None) -> int:
                   f"({plan_stats(ids, plan)}): max_abs_err {err!r}, within "
                   f"tolerance and deterministic {ok}")
             check(ok, f"segment_matmul disagrees at edge case {name}")
+    # the general path (any D, scalar loads, slabs of up to 256 columns) at
+    # the bf16 neigh plan's ids
+    _, ids, plan = next(x for x in bench_plans(benches["bfloat16"][4],
+                                               benches["bfloat16"][5])
+                        if x[0] == "neigh")
+    rows = benches["bfloat16"][2]["node_embed"].shape[0]
+    for width in ANY_WIDTHS:
+        for tdt in (torch.float32, torch.bfloat16):
+            g = torch.randn(ids.numel(), width, generator=gen,
+                            device=dev).to(tdt)
+            err, ok = segment_check(E, g, ids, plan, rows)
+            seg_err = max(seg_err, err)
+            print(f"[kernel] segment_matmul D={width} {tdt} at the bf16 neigh "
+                  f"plan ({plan_stats(ids, plan)}): max_abs_err {err!r}, "
+                  f"within tolerance and deterministic {ok}")
+            check(ok, f"segment_matmul disagrees at D={width} {tdt}")
 
     # ---------------------------------------------------------- 3. serving
     with tempfile.TemporaryDirectory() as tmp:
@@ -314,7 +512,8 @@ def main(argv=None) -> int:
         _, params, state = pipe.build_model(args.seed)
         print(f"[serving] load+precompute+build_model "
               f"{time.perf_counter() - t0:.2f}s; pool "
-              f"{pipe.structure_anchors.shape}")
+              f"{pipe.structure_anchors.shape}; precompute stages (s) "
+              f"{json.dumps(pipe.precompute_timings)}")
 
         results = []
         kdtw.dtw_distance_grouped.launches = 0
@@ -388,6 +587,9 @@ def main(argv=None) -> int:
               f"equal {req_same}; device_ms {dev_t['device_ms']!r}, span_ms "
               f"{dev_t['span_ms']!r}, device activities "
               f"{json.dumps(dev_t['activities'])}")
+
+        # ------------------------------------------------------ 4. dataset
+        dataset_phase(root, graph, hp, rng, args.seed, dev)
 
     dtw_record = {"name": "dtw_grouped", "route": "cuda",
                   "source": "subgnn_tpu_torch/csrc/dtw.cu",

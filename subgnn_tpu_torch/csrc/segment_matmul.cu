@@ -65,6 +65,20 @@
 //     by the plan whichever block finishes a run, so the same plan and
 //     cotangent give the same bits on every run and every card (index_add_
 //     and float atomicAdd do not).
+//
+// Any width D. The fast set is D = 32 * VEC (VEC of 1, 2, 4 or 8) with g and
+// out 16-byte aligned: lane l holds columns [l*VEC, l*VEC+VEC) and moves
+// them as one vector. Every other D, and a fast-set D whose g is not so
+// aligned, takes the general path (ANY): the row is cut into slabs of up to
+// 256 columns, one launch a slab, one after another on the stream (so the
+// slabs share the scratch and the ticket words, which each launch leaves
+// zero). In a slab of nc columns lane l holds columns l, l+32, ... below nc,
+// with VEC the least of 1, 2, 4, 8 that covers nc; loads and stores are
+// scalar (a bf16 row of D=100 is 200 bytes, so rows are not 16-byte
+// aligned), the row stride D is passed apart from the slab width, and every
+// zero fill and row store is masked to the slab's columns, so every output
+// element still has exactly one writer. The slot partition, the runs, the
+// tickets and the order of every sum are the fast set's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -115,10 +129,34 @@ __device__ __forceinline__ void store_row(T* p, const float (&v)[VEC]) {
   *reinterpret_cast<Pack<T, VEC>*>(p) = pk;
 }
 
-// adds VEC fp32 partial values, read from L2 (other blocks wrote them)
+// column of a slab held in element i of lane `lane`'s VEC: contiguous in
+// the fast set, lane-strided in the general path
+template <int VEC, bool ANY>
+__device__ __forceinline__ int col(int lane, int i) {
+  return ANY ? lane + 32 * i : lane * VEC + i;
+}
+
+// the lane's VEC values into a row whose column 0 is at `row`: one vector
+// store in the fast set, scalar stores below nc columns in the general path
+template <typename T, int VEC, bool ANY>
+__device__ __forceinline__ void put_row(T* row, const float (&v)[VEC],
+                                        int lane, int nc) {
+  if constexpr (ANY) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = col<VEC, ANY>(lane, i);
+      if (c < nc) row[c] = from_float<T>(v[i]);
+    }
+  } else {
+    store_row<T, VEC>(row + lane * VEC, v);
+  }
+}
+
+// adds VEC contiguous fp32 partial values, read from L2 (other blocks wrote
+// them), as the fast set's vector loads
 template <int VEC>
-__device__ __forceinline__ void add_partial(const float* p,
-                                            float (&acc)[VEC]) {
+__device__ __forceinline__ void add_partial_vec(const float* p,
+                                                float (&acc)[VEC]) {
   if constexpr (VEC == 1) {
     acc[0] += __ldcg(p);
   } else if constexpr (VEC == 2) {
@@ -137,6 +175,21 @@ __device__ __forceinline__ void add_partial(const float* p,
   }
 }
 
+// adds the lane's VEC values of the fp32 partial row at p
+template <int VEC, bool ANY>
+__device__ __forceinline__ void add_partial(const float* p, float (&acc)[VEC],
+                                            int lane, int nc) {
+  if constexpr (ANY) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = col<VEC, ANY>(lane, i);
+      if (c < nc) acc[i] += __ldcg(p + c);
+    }
+  } else {
+    add_partial_vec<VEC>(p + lane * VEC, acc);
+  }
+}
+
 // row key of flat slot s, or -1 for a padding slot or s outside [0, S)
 __device__ __forceinline__ int key_at(const int* local, const int* block,
                                       int s, int S, int W) {
@@ -145,18 +198,17 @@ __device__ __forceinline__ int key_at(const int* local, const int* block,
   return loc < kTableBlock ? block[s / W] * kTableBlock + loc : -1;
 }
 
-// the warp writes zero rows [lo, min(hi, out_rows))
-template <typename T, int VEC>
-__device__ __forceinline__ void zero_rows(T* out, int lo, int hi,
-                                          int out_rows, int lane) {
+// the warp writes zero rows [lo, min(hi, out_rows)) of the slab at out
+// (rows `ld` elements apart, nc columns)
+template <typename T, int VEC, bool ANY>
+__device__ __forceinline__ void zero_rows(T* out, long long ld, int nc, int lo,
+                                          int hi, int out_rows, int lane) {
   float z[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) z[i] = 0.0f;
   const int end = hi < out_rows ? hi : out_rows;
   for (int r = lo; r < end; ++r)
-    store_row<T, VEC>(out + static_cast<long long>(r) * (32 * VEC) +
-                          lane * VEC,
-                      z);
+    put_row<T, VEC, ANY>(out + static_cast<long long>(r) * ld, z, lane, nc);
 }
 
 // Ticket word of a run that crosses block edges, from block b to block e:
@@ -187,13 +239,14 @@ constexpr int kShortRun = 4;  // runs over at most this many edges: per column
 // one: warp 0 starts with the tail, warp w takes blocks b+1+w,
 // b+1+w+kWarps, ... over kPar accumulators round-robin, and the warps'
 // sums are added in warp order.
-template <typename T, int VEC>
+template <typename T, int VEC, bool ANY>
 __device__ void finish_run(int row, int b, int e, const float* partials,
-                           float (*s_acc)[32 * VEC], T* out, int out_rows) {
-  constexpr int D = 32 * VEC;
+                           float (*s_acc)[32 * VEC], T* out, long long ld,
+                           int nc, int out_rows) {
+  constexpr int D = 32 * VEC;            // partial row width
   constexpr int kPar = VEC > 4 ? 1 : 4;  // partial rows in flight per warp
   if (e - b <= kShortRun) {
-    if (threadIdx.x < D && row < out_rows) {
+    if (threadIdx.x < nc && row < out_rows) {
       const int c = threadIdx.x;
       float v[kShortRun + 1];
 #pragma unroll
@@ -205,7 +258,7 @@ __device__ void finish_run(int row, int b, int e, const float* partials,
 #pragma unroll
       for (int k = 1; k <= kShortRun; ++k)
         if (b + k <= e) sum += v[k];
-      out[static_cast<long long>(row) * D + c] = from_float<T>(sum);
+      out[static_cast<long long>(row) * ld + c] = from_float<T>(sum);
     }
     return;
   }
@@ -217,41 +270,51 @@ __device__ void finish_run(int row, int b, int e, const float* partials,
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[q][i] = 0.0f;
   if (warp == 0)
-    add_partial<VEC>(partials + (2LL * b + 1) * D + lane * VEC, acc[0]);
+    add_partial<VEC, ANY>(partials + (2LL * b + 1) * D, acc[0], lane, nc);
   for (int j = b + 1 + warp; j <= e; j += kPar * kWarps) {
 #pragma unroll
     for (int q = 0; q < kPar; ++q)
       if (j + q * kWarps <= e)
-        add_partial<VEC>(partials + 2LL * (j + q * kWarps) * D + lane * VEC,
-                         acc[q]);
+        add_partial<VEC, ANY>(partials + 2LL * (j + q * kWarps) * D, acc[q],
+                              lane, nc);
   }
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     float sum = acc[0][i];
 #pragma unroll
     for (int q = 1; q < kPar; ++q) sum += acc[q][i];
-    s_acc[warp][lane * VEC + i] = sum;
+    s_acc[warp][col<VEC, ANY>(lane, i)] = sum;
   }
   __syncthreads();
-  if (threadIdx.x < D && row < out_rows) {
+  if (threadIdx.x < nc && row < out_rows) {
     float sum = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += s_acc[w][threadIdx.x];
-    out[static_cast<long long>(row) * D + threadIdx.x] = from_float<T>(sum);
+    out[static_cast<long long>(row) * ld + threadIdx.x] = from_float<T>(sum);
   }
   __syncthreads();
 }
 
 // SW slots a warp; D = 256 keeps two blocks per SM: its rows take more
-// registers
-template <typename T, int VEC, int SW>
-__global__ void __launch_bounds__(kThreads, VEC > 4 ? 2 : 3)
+// registers, and so do the general path's at VEC = 4 (its scalar loads
+// spill at three blocks a SM). The fast set (ANY false) reads rows of
+// exactly D = 32 * VEC columns; the general path one slab: columns
+// [c0, c0 + nc) of rows ld elements long, nc <= 32 * VEC.
+template <typename T, int VEC, int SW, bool ANY>
+__global__ void __launch_bounds__(kThreads,
+                                  VEC > 4 || (ANY && VEC == 4) ? 2 : 3)
 segment_rows(const T* __restrict__ g, const int* __restrict__ pos,
              const int* __restrict__ local, const int* __restrict__ block,
              T* __restrict__ out, float* __restrict__ partials,
              unsigned long long* __restrict__ tickets, int n_ids,
-             int out_rows, int S, int W) {
-  constexpr int D = 32 * VEC;
+             int out_rows, int S, int W, int ld_, int c0, int nc_) {
+  constexpr int D = 32 * VEC;  // columns the lanes hold; partial row width
+  const long long ld = ANY ? ld_ : D;  // row stride of g and out
+  const int nc = ANY ? nc_ : D;        // columns of this slab
+  if constexpr (ANY) {
+    g += c0;
+    out += c0;
+  }
   constexpr int kChunk = SW < 32 ? SW : 32;  // slots a warp loads at once
   // cotangent rows in flight per warp: 32 bytes a lane (divides kChunk)
   constexpr int kRows = VEC * sizeof(T) >= 16 ? 2 : 4;
@@ -313,9 +376,17 @@ segment_rows(const T* __restrict__ g, const int* __restrict__ pos,
           const int p = __shfl_sync(kFull, p_lane, k0 + u);
 #pragma unroll
           for (int i = 0; i < VEC; ++i) v[u].x[i] = from_float<T>(0.0f);
-          if (p >= 0)
-            v[u] = *reinterpret_cast<const Pack<T, VEC>*>(
-                g + static_cast<long long>(p) * D + lane * VEC);
+          if (p >= 0) {
+            const T* row = g + static_cast<long long>(p) * ld;
+            if constexpr (ANY) {
+#pragma unroll
+              for (int i = 0; i < VEC; ++i)
+                if (col<VEC, ANY>(lane, i) < nc)
+                  v[u].x[i] = row[col<VEC, ANY>(lane, i)];
+            } else {
+              v[u] = *reinterpret_cast<const Pack<T, VEC>*>(row + lane * VEC);
+            }
+          }
         }
 #pragma unroll
         for (int u = 0; u < kRows; ++u) {
@@ -324,10 +395,10 @@ segment_rows(const T* __restrict__ g, const int* __restrict__ pos,
           if (k != cur) {
             if (cur >= 0) {  // the run `cur` ended inside this range
               if (first)
-                store_row<float, VEC>(&s_piece[0][warp][lane * VEC], acc);
+                put_row<float, VEC, ANY>(s_piece[0][warp], acc, lane, nc);
               else if (cur < out_rows)
-                store_row<T, VEC>(
-                    out + static_cast<long long>(cur) * D + lane * VEC, acc);
+                put_row<T, VEC, ANY>(out + static_cast<long long>(cur) * ld,
+                                     acc, lane, nc);
             }
             cur = k;
             first = false;
@@ -368,36 +439,35 @@ segment_rows(const T* __restrict__ g, const int* __restrict__ pos,
       for (unsigned m = __ballot_sync(kFull, lo < hi || lo2 < hi2); m;
            m &= m - 1) {
         const int src = __ffs(m) - 1;
-        zero_rows<T, VEC>(out, __shfl_sync(kFull, lo, src),
-                          __shfl_sync(kFull, hi, src), out_rows, lane);
-        zero_rows<T, VEC>(out, __shfl_sync(kFull, lo2, src),
-                          __shfl_sync(kFull, hi2, src), out_rows, lane);
+        zero_rows<T, VEC, ANY>(out, ld, nc, __shfl_sync(kFull, lo, src),
+                               __shfl_sync(kFull, hi, src), out_rows, lane);
+        zero_rows<T, VEC, ANY>(out, ld, nc, __shfl_sync(kFull, lo2, src),
+                               __shfl_sync(kFull, hi2, src), out_rows, lane);
       }
     }
 
     const bool open_end = cur >= 0 && key_at(local, block, s1, S, W) == cur;
     if (cur >= 0) {
       if (first || open_end) {
-        store_row<float, VEC>(&s_piece[first ? 0 : 1][warp][lane * VEC],
-                              acc);
+        put_row<float, VEC, ANY>(s_piece[first ? 0 : 1][warp], acc, lane, nc);
         if (!first && lane == 0) s_key[warp] = cur;
       } else if (cur < out_rows) {
-        store_row<T, VEC>(out + static_cast<long long>(cur) * D + lane * VEC,
-                          acc);
+        put_row<T, VEC, ANY>(out + static_cast<long long>(cur) * ld, acc,
+                             lane, nc);
       }
     }
     state |= (open_end ? kOpenEnd : 0) | (first && open_end ? kWhole : 0);
   }
   if (b == 0 && warp == 0)  // rows past the plan's last table block
-    zero_rows<T, VEC>(out, (block[S / W - 1] + 1) * kTableBlock, out_rows,
-                      out_rows, lane);
+    zero_rows<T, VEC, ANY>(out, ld, nc, (block[S / W - 1] + 1) * kTableBlock,
+                           out_rows, out_rows, lane);
   if (lane == 0) s_state[warp] = state;
   __syncthreads();
 
   // the block sums the pieces of runs that cross its warp edges, in warp
   // order, one column per thread
   int fl = 0, tail_row = -1;
-  if (threadIdx.x < D) {
+  if (threadIdx.x < nc) {
     const int c = threadIdx.x;
     float acc = 0.0f;
     int key = -1;
@@ -416,7 +486,7 @@ segment_rows(const T* __restrict__ g, const int* __restrict__ pos,
           partials[2LL * b * D + c] = acc;
           fl |= kHead;
         } else if (key < out_rows) {
-          out[static_cast<long long>(key) * D + c] = from_float<T>(acc);
+          out[static_cast<long long>(key) * ld + c] = from_float<T>(acc);
         }
         open = false;
       }
@@ -467,48 +537,71 @@ segment_rows(const T* __restrict__ g, const int* __restrict__ pos,
   __syncthreads();
   for (int k = 0; k < 2; ++k)
     if (s_fin[k][0] >= 0)
-      finish_run<T, VEC>(s_fin[k][0], s_fin[k][1], s_fin[k][2], partials,
-                         s_piece[0], out, out_rows);
+      finish_run<T, VEC, ANY>(s_fin[k][0], s_fin[k][1], s_fin[k][2],
+                              partials, s_piece[0], out, ld, nc, out_rows);
 }
 
-template <typename T, int VEC, int SW>
+template <typename T, int VEC, int SW, bool ANY>
 cudaError_t launch(const void* g, const int* pos, const int* local,
                    const int* block, void* out, float* partials,
                    unsigned long long* tickets, int n_ids, int out_rows,
-                   int S, int W, int n_blocks, cudaStream_t s) {
-  segment_rows<T, VEC, SW><<<n_blocks, kThreads, 0, s>>>(
+                   int S, int W, int ld, int c0, int nc, int n_blocks,
+                   cudaStream_t s) {
+  segment_rows<T, VEC, SW, ANY><<<n_blocks, kThreads, 0, s>>>(
       static_cast<const T*>(g), pos, local, block, static_cast<T*>(out),
-      partials, tickets, n_ids, out_rows, S, W);
+      partials, tickets, n_ids, out_rows, S, W, ld, c0, nc);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const void*, const int*, const int*,
                                const int*, void*, float*,
                                unsigned long long*, int, int, int, int, int,
-                               cudaStream_t);
+                               int, int, int, cudaStream_t);
 
-// the instantiation for D = 32 * vec and sw slots a warp, or nullptr
-template <typename T>
+// the instantiation for lanes of vec columns and sw slots a warp, or nullptr
+template <typename T, bool ANY>
 Launch pick(int vec, int sw) {
   static constexpr Launch kTable[4][4] = {
-      {launch<T, 1, 8>, launch<T, 1, 16>, launch<T, 1, 32>, launch<T, 1, 64>},
-      {launch<T, 2, 8>, launch<T, 2, 16>, launch<T, 2, 32>, launch<T, 2, 64>},
-      {launch<T, 4, 8>, launch<T, 4, 16>, launch<T, 4, 32>, launch<T, 4, 64>},
-      {launch<T, 8, 8>, launch<T, 8, 16>, launch<T, 8, 32>, launch<T, 8, 64>}};
+      {launch<T, 1, 8, ANY>, launch<T, 1, 16, ANY>, launch<T, 1, 32, ANY>,
+       launch<T, 1, 64, ANY>},
+      {launch<T, 2, 8, ANY>, launch<T, 2, 16, ANY>, launch<T, 2, 32, ANY>,
+       launch<T, 2, 64, ANY>},
+      {launch<T, 4, 8, ANY>, launch<T, 4, 16, ANY>, launch<T, 4, 32, ANY>,
+       launch<T, 4, 64, ANY>},
+      {launch<T, 8, 8, ANY>, launch<T, 8, 16, ANY>, launch<T, 8, 32, ANY>,
+       launch<T, 8, 64, ANY>}};
   const int v = vec == 1 ? 0 : vec == 2 ? 1 : vec == 4 ? 2 : vec == 8 ? 3 : -1;
   const int w = sw == 8 ? 0 : sw == 16 ? 1 : sw == 32 ? 2 : sw == 64 ? 3 : -1;
   return v < 0 || w < 0 ? nullptr : kTable[v][w];
 }
 
+Launch pick(bool bf16, bool any, int vec, int sw) {
+  return bf16 ? (any ? pick<__nv_bfloat16, true>(vec, sw)
+                     : pick<__nv_bfloat16, false>(vec, sw))
+              : (any ? pick<float, true>(vec, sw)
+                     : pick<float, false>(vec, sw));
+}
+
+constexpr int kSlab = 256;  // columns of a general-path slab
+
+// columns a lane holds for a slab of nc <= 256 columns: the least of 32,
+// 64, 128 and 256 that is at least nc, over 32 (D / 32 in the fast set)
+int slab_vec(int nc) {
+  return nc <= 32 ? 1 : nc <= 64 ? 2 : nc <= 128 ? 4 : 8;
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t; 0 = ok.
-// g (n_ids, D) and out (out_rows, D) both f32, or both bf16 (bf16), g 16-byte
-// aligned; pos/local (T, W) i32; block (T,) i32. D is 32, 64, 128 or 256;
-// slots_per_warp is 8, 16, 32 or 64, and the grid is ceil(T*W / (16 *
-// slots_per_warp)) blocks, fewer than 2^21. scratch (scratch_bytes) holds 2
-// fp32 rows of D a block; tickets holds ticket_rows 64-bit words, at least
-// out_rows, zero on entry and left zero.
+// g (n_ids, D) and out (out_rows, D) both f32, or both bf16 (bf16), each
+// contiguous; D >= 1; pos/local (T, W) i32; block (T,) i32. D of 32, 64, 128
+// or 256 with g and out 16-byte aligned takes the fast set, every other D
+// (or alignment) the general path, one launch per slab of up to 256
+// columns. slots_per_warp is 8, 16, 32 or 64, and the grid is ceil(T*W /
+// (16 * slots_per_warp)) blocks, fewer than 2^21. scratch (scratch_bytes)
+// holds 2 fp32 partial rows a block, each 32 * slab_vec(min(D, 256))
+// floats wide (D itself in the fast set); tickets holds ticket_rows 64-bit
+// words, at least out_rows, zero on entry and left zero.
 extern "C" int subgnn_segment_matmul(const void* g, const void* pos,
                                      const void* local, const void* block,
                                      void* out, long long n_ids,
@@ -519,9 +612,11 @@ extern "C" int subgnn_segment_matmul(const void* g, const void* pos,
                                      void* stream) {
   if (out_rows <= 0) return 0;
   const int sw = slots_per_warp;
-  const Launch fn = bf16 ? pick<__nv_bfloat16>(D / 32, sw)
-                         : pick<float>(D / 32, sw);
-  if (D % 32 || fn == nullptr || W <= 0 || T < 0)
+  const bool aligned = reinterpret_cast<unsigned long long>(g) % 16 == 0 &&
+                       reinterpret_cast<unsigned long long>(out) % 16 == 0;
+  const bool any = !(aligned && (D == 32 || D == 64 || D == 128 || D == 256));
+  const int width = 32 * slab_vec(D < kSlab ? D : kSlab);  // partial row
+  if (D <= 0 || W <= 0 || T < 0 || pick(bf16, any, width / 32, sw) == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const long long S = static_cast<long long>(T) * W;
@@ -533,12 +628,18 @@ extern "C" int subgnn_segment_matmul(const void* g, const void* pos,
   if (S > 0x7fffffffLL - kWarps * 64 || out_rows > 0x7fffffffLL ||
       n_ids > 0x7fffffffLL || n_blocks > kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (scratch_bytes < 2 * n_blocks * D * 4 || ticket_rows < out_rows)
+  if (scratch_bytes < 2 * n_blocks * width * 4 || ticket_rows < out_rows)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      fn(g, static_cast<const int*>(pos), static_cast<const int*>(local),
-         static_cast<const int*>(block), out, static_cast<float*>(scratch),
-         static_cast<unsigned long long*>(tickets), static_cast<int>(n_ids),
-         static_cast<int>(out_rows), static_cast<int>(S), W,
-         static_cast<int>(n_blocks), s));
+  // the slabs one after another on the stream (the fast set is one slab)
+  for (int c0 = 0; c0 < D; c0 += kSlab) {
+    const int nc = D - c0 < kSlab ? D - c0 : kSlab;
+    const int err = static_cast<int>(pick(bf16, any, slab_vec(nc), sw)(
+        g, static_cast<const int*>(pos), static_cast<const int*>(local),
+        static_cast<const int*>(block), out, static_cast<float*>(scratch),
+        static_cast<unsigned long long*>(tickets), static_cast<int>(n_ids),
+        static_cast<int>(out_rows), static_cast<int>(S), W, D, c0, nc,
+        static_cast<int>(n_blocks), s));
+    if (err != 0) return err;
+  }
+  return 0;
 }

@@ -7,7 +7,9 @@ line per input set:
 
 - `segment_matmul` (the table gradient) at each of the bench's four plans
   (bf16 B=1280 and fp32 B=512, neigh and cc;
-  subgnn_tpu_torch/bench.py:bench_batch): its device_ms, span_ms and
+  subgnn_tpu_torch/bench.py:bench_batch) at D=128, its vector path, and at
+  the bf16 neigh plan on its general path (GENERAL_WIDTHS: D = 8, 100, 384
+  and a misaligned D=128; `path` says which): its device_ms, span_ms and
   call_ms, the device time of each of its device activities,
   `index_add_`'s device_ms and call_ms, the plain version's time
   (`plain_ms`, CUDA events around 3 calls) and the byte bound;
@@ -34,7 +36,8 @@ example the parent commit unpacked with `git archive`), built from DIR's
 own sources into DIR's own build directory, on the same inputs and in
 turns: DIR, this, this, DIR. Where DIR's kernel refuses an input set (it
 raises ValueError), the refusal is recorded and only this checkout's kernel
-is timed there.
+is timed there (the parent of the any-D kernel refuses the general
+path's widths).
 """
 from __future__ import annotations
 
@@ -56,6 +59,9 @@ from .ops import embedding as E
 from .train.plans import neigh_ids_for_batch
 
 FLUSH_BYTES = 256 << 20     # copied before each traced call: > 5x the L2
+# segment_matmul's general path at the bf16 neigh plan: the mini fixture's
+# width, unaligned bf16 rows, two slabs, and D=128 from a g off 16 bytes
+GENERAL_WIDTHS = (8, 100, 384, "128-misaligned")
 TRACED_CALLS = 20
 TRACE_TRIES = 3
 TRACE_SPARE = 3             # untimed calls traced first (see _traced_calls)
@@ -274,7 +280,8 @@ def in_turns(this, before) -> list:
 
 
 def segment_records(dev, seed: int, other):
-    """One record per bench plan for segment_matmul (`other`: DIR's
+    """One record per bench plan for segment_matmul at D=128, and at the
+    bf16 neigh plan one per GENERAL_WIDTHS case (`other`: DIR's
     ops.embedding or None)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     for dt in ("bfloat16", "float32"):
@@ -282,37 +289,59 @@ def segment_records(dev, seed: int, other):
         rows = params["node_embed"].shape[0]
         tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
         for name, ids, plan in bench_plans(batch, anchors):
-            g = torch.randn(ids.numel(), 128, generator=gen,
-                            device=dev).to(tdt)
-            flat = ids.reshape(-1)
-            ref = E.segment_matmul_torch(g, plan, rows)
+            widths = [128]
+            if dt == "bfloat16" and name == "neigh":
+                widths += GENERAL_WIDTHS
+            for width in widths:
+                D = int(str(width).split("-")[0])
+                g = torch.randn(ids.numel() * D + 1, generator=gen,
+                                device=dev).to(tdt)
+                g = (g[1:] if width != D else g[:-1]).view(ids.numel(), D)
+                yield segment_record(g, ids, plan, rows, other, dict(
+                    kernel="segment_matmul", dtype=dt,
+                    B=batch["cc_ids"].shape[0], plan=name,
+                    tiles=plan.pos.shape[0], D=D,
+                    path=("vector" if D in (32, 64, 128, 256)
+                          and g.data_ptr() % 16 == 0 else "general")))
 
-            def this():
-                return E.segment_matmul(g, plan, rows)
 
-            def library():
-                torch.zeros(rows, g.shape[1], dtype=torch.float32,
-                            device=dev).index_add_(0, flat, g.float())
+def segment_record(g, ids, plan, rows: int, other, record: dict) -> dict:
+    """`record` with segment_matmul's times at (g, plan), its plain
+    version's, index_add_'s and the byte bound."""
+    dev = g.device
+    flat = ids.reshape(-1)
+    ref = E.segment_matmul_torch(g, plan, rows)
+    record["bound_ms"] = segment_bound_ms(g, plan, rows)
 
+    def this():
+        return E.segment_matmul(g, plan, rows)
+
+    def library():
+        torch.zeros(rows, g.shape[1], dtype=torch.float32,
+                    device=dev).index_add_(0, flat, g.float())
+
+    before = None
+    if other is not None:
+        def before():
+            return other.segment_matmul(g, plan, rows)
+        try:
+            before()
+        except ValueError as e:     # DIR's kernel refuses this width
+            record["other"] = {"refused": str(e)}
             before = None
-            if other is not None:
-                def before():
-                    return other.segment_matmul(g, plan, rows)
-            record = {"kernel": "segment_matmul", "dtype": dt,
-                      "B": batch["cc_ids"].shape[0], "plan": name,
-                      "tiles": plan.pos.shape[0],
-                      "bound_ms": segment_bound_ms(g, plan, rows)}
-            turns = in_turns(this, before)
-            for who, fn in turns[:2]:
-                record[f"{who}_max_abs_err"] = float(
-                    (fn().float() - ref.float()).abs().max())
-            timed_turns(record, turns)
-            lib = device_times(library)
-            record["library"] = {"device_ms": lib["device_ms"],
-                                 "call_ms": event_ms(library, 20)}
-            record["plain_ms"] = event_ms(
-                lambda: E.segment_matmul_torch(g, plan, rows), 3)
-            yield record
+    turns = in_turns(this, before)
+    for who, fn in turns[:2]:
+        got = fn()
+        record[f"{who}_max_abs_err"] = float(
+            (got.float() - ref.float()).abs().max())
+        record[f"{who}_bits_deterministic"] = torch.equal(got, fn())
+    timed_turns(record, turns)
+    lib = device_times(library)
+    record["library"] = {"device_ms": lib["device_ms"],
+                         "call_ms": event_ms(library, 20)}
+    record["plain_ms"] = event_ms(
+        lambda: E.segment_matmul_torch(g, plan, rows), 3)
+    return record
 
 
 def dtw_records(dev, seed: int, other):

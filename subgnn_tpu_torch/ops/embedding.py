@@ -154,6 +154,7 @@ def _kernel():
 
 KERNEL_WARPS = 16        # warps per thread block of the kernel
 KERNEL_MIN_BLOCKS = 264  # two blocks for each of an H100's 132 SMs
+KERNEL_SLAB = 256        # columns of one launch of the kernel's general path
 
 
 def kernel_slots_per_warp(n_slots: int) -> int:
@@ -164,6 +165,14 @@ def kernel_slots_per_warp(n_slots: int) -> int:
         if -(-n_slots // (KERNEL_WARPS * sw)) >= KERNEL_MIN_BLOCKS:
             return sw
     return 8
+
+
+def kernel_partial_width(D: int) -> int:
+    """Width of the kernel's fp32 partial rows for table width D: the least
+    of 32, 64, 128 and 256 that holds min(D, KERNEL_SLAB) columns (D itself
+    for D of 32, 64, 128 or 256)."""
+    k = -(-min(D, KERNEL_SLAB) // 32)
+    return 32 * (1 << (k - 1).bit_length())
 
 
 # the kernel's ticket words per (device, stream): one int64 a table row,
@@ -208,11 +217,12 @@ def segment_matmul(g: torch.Tensor, plan: GatherPlan,
     of the rows of g routed to it by `plan`; zero for rows no slot names,
     including rows past plan.n_rows.
 
-    g: (n_ids, D) float32 or bfloat16 flat cotangent (the ids' order);
-    plan: a GatherPlan of int32 tensors on g's device. CUDA tensors launch
-    csrc/segment_matmul.cu (D of 32, 64, 128 or 256, g contiguous and
-    16-byte aligned) and add one to `segment_matmul.launches`; CPU tensors
-    run the plain version.
+    g: (n_ids, D) float32 or bfloat16 flat cotangent (the ids' order), any
+    D >= 1; plan: a GatherPlan of int32 tensors on g's device. CUDA tensors
+    launch csrc/segment_matmul.cu (g contiguous; D of 32, 64, 128 or 256
+    with g 16-byte aligned takes its vector path, any other D or alignment
+    its general path, one launch per slab of up to 256 columns) and add one
+    to `segment_matmul.launches`; CPU tensors run the plain version.
     """
     out_rows = plan.n_rows if out_rows is None else int(out_rows)
     _check(g, plan)
@@ -223,18 +233,18 @@ def segment_matmul(g: torch.Tensor, plan: GatherPlan,
         raise ValueError(f"segment_matmul: unsupported device {dev}")
     n_ids, D = g.shape
     T, W = plan.pos.shape
-    if D not in (32, 64, 128, 256):
-        raise ValueError(f"segment_matmul kernel takes D of 32, 64, 128 or "
-                         f"256; got {D}")
-    if not g.is_contiguous() or g.data_ptr() % 16:
-        raise ValueError("g must be contiguous and 16-byte aligned")
+    if D < 1:
+        raise ValueError(f"g must have at least one column, got {D}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
     if out_rows < plan.n_rows:
         raise ValueError(f"out_rows {out_rows} < plan.n_rows {plan.n_rows}")
     out = torch.empty(out_rows, D, dtype=g.dtype, device=dev)
     sw = kernel_slots_per_warp(T * W)
     n_blocks = max(-(-T * W // (KERNEL_WARPS * sw)), 1)
     # fp32 partial rows: two a kernel block, for runs that cross its edges
-    partials = torch.empty(2 * n_blocks, D, dtype=torch.float32, device=dev)
+    partials = torch.empty(2 * n_blocks, kernel_partial_width(D),
+                           dtype=torch.float32, device=dev)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
@@ -270,7 +280,8 @@ class EmbeddingGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        # grad has the forward output's dtype, the table's, so dtable has it
+        # grad has the forward output's dtype, the table's, so dtable has it;
+        # an aligned copy keeps a fast-set D on the kernel's vector path
         D = grad.shape[-1]
         g = grad.reshape(-1, D).contiguous()
         if g.data_ptr() % 16:

@@ -4,15 +4,24 @@ Reference: SubGNN/SubGNN.py:673-747 + subgraph_utils.py:146-176. The border
 set of a CC is the union of radius-k ego graphs around its nodes minus the
 CC itself, padded to (n_subgraphs, max_n_cc, max_border_len) with PAD=0.
 
-Serving derives the sets from the BFS rows it already fetched for the NP
-similarities; the CSR k-hop path of the JAX package (compute_border_sets)
-arrives with full-dataset precompute.
+Full-dataset precompute walks the CSR k-hop balls (compute_border_sets);
+serving derives the sets from the BFS rows it already fetched for the NP
+similarities (border_sets_from_rows). Both give the same sets.
 
-A numpy copy of border_sets_from_rows from subgnn_tpu/precompute/border.py.
+NOTE a deliberate deviation, kept from the JAX package: when the reference
+loads a precomputed ego_graphs.txt it uses the 1-hop ego lists regardless of
+the configured radius AND mixes their 0-based ids with its 1-based node ids
+(subgraph_utils.py:165-170) — an off-by-one. compute_border_sets computes
+the correct radius-k, 1-based sets; shift_compat=True reproduces the
+reference's file-loading behaviour for parity studies.
+
+A numpy copy of subgnn_tpu/precompute/border.py.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..data.graph import CSRGraph
 
 PAD_VALUE = 0
 
@@ -65,3 +74,32 @@ def border_sets_from_rows(srcs: np.ndarray, rows: np.ndarray,
         all_sets.append(row_sets)
     return _pad_border_sets(all_sets, n_sub, max_n_cc)
 
+
+def compute_border_sets(graph: CSRGraph, cc_ids: np.ndarray, radius: int,
+                        shift_compat: bool = False) -> np.ndarray:
+    """(n_subgraphs, max_n_cc, max_border_len) int32, PAD=0: the radius-k
+    ball around each CC minus the CC."""
+    n_sub, max_n_cc, _ = cc_ids.shape
+    all_sets = []
+    for s in range(n_sub):
+        row = []
+        for c in range(max_n_cc):
+            comp = cc_ids[s, c]
+            comp = comp[comp != PAD_VALUE]
+            if comp.size == 0:
+                row.append(np.zeros(0, dtype=np.int32))
+                continue
+            if shift_compat:
+                # reference quirk: 1-hop ego lists in RAW 0-based ids,
+                # minus the 1-based component set
+                nbhd = set()
+                for v in comp:
+                    nbhd.update((graph.neighbors(int(v)) - 1).tolist())
+                border = nbhd - set(int(v) for v in comp)
+                row.append(np.asarray(sorted(border), dtype=np.int32))
+            else:
+                mask = graph.khop_mask(comp.tolist(), radius)
+                mask[comp] = False
+                row.append(np.flatnonzero(mask).astype(np.int32))
+        all_sets.append(row)
+    return _pad_border_sets(all_sets, n_sub, max_n_cc)

@@ -1,17 +1,31 @@
-"""BFS hop distances from a subset of source nodes (serving NP sims).
+"""BFS hop distances: the all-pairs matrix and rows from a subset of sources.
 
-Port of subgnn_tpu/precompute/shortest_paths.py's `shortest_path_rows` with
-its numpy host BFS. Output contract: (len(sources), n_nodes) int32 indexed by
-RAW 0-based node id, hop distance, unreached nodes left at 0 (the np.zeros
-fill artifact of the reference precompute,
-prepare_dataset/precompute_graph_metrics.py:23-26). Hop distances are exact,
-so any BFS gives the same rows.
+Port of subgnn_tpu/precompute/shortest_paths.py without its mesh and native
+paths. Output contract of both functions: int32 rows indexed by RAW 0-based
+node id, hop distance, unreached nodes left at 0 (the np.zeros fill artifact
+of the reference precompute, prepare_dataset/precompute_graph_metrics.py:
+23-26). Hop distances are exact, so every backend gives the same rows.
+
+  * shortest_path_matrix — the dense (n, n) matrix the full-dataset
+    precompute caches as shortest_path_matrix.npy. Backends: 'host', the
+    numpy frontier BFS; 'device', frontier products against a dense
+    adjacency on a torch device (the JAX package's _bfs_device); 'auto',
+    'device' for n <= DEVICE_BFS_MAX_NODES, else 'host'.
+  * shortest_path_rows — rows from the given sources only (serving, and
+    precompute above the all-pairs size), on the host.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..data.graph import CSRGraph
+from ..device import resolve_device
+
+# 'auto' builds the all-pairs matrix on the device up to this many nodes:
+# a dense (n, n) adjacency (32 MB in bf16 at 4096)
+DEVICE_BFS_MAX_NODES = 4096
+DEVICE_BFS_CHUNK = 256      # BFS sources per frontier product
 
 
 def _bfs_from_sources_host(graph: CSRGraph, sources: np.ndarray) -> np.ndarray:
@@ -48,10 +62,76 @@ def _bfs_from_sources_host(graph: CSRGraph, sources: np.ndarray) -> np.ndarray:
     return out
 
 
-def shortest_path_rows(graph: CSRGraph, sources: np.ndarray) -> np.ndarray:
+def _bfs_device(graph: CSRGraph, device: str | torch.device) -> np.ndarray:
+    """Dense-adjacency BFS on a torch device, DEVICE_BFS_CHUNK sources at a
+    time.
+
+    The frontier of a chunk is a (chunk, n) 0/1 matrix; one level is its
+    product with the (n, n) 0/1 adjacency, and a node's distance is written
+    when it first enters the frontier. The loop runs until every frontier of
+    the chunk is empty. Sums of 0/1 products are positive integers, so the
+    `> 0` test is exact in bf16 (on the card) as in fp32 (on the CPU)."""
+    dev = resolve_device(device)
+    n = graph.n_nodes
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    src = np.repeat(np.arange(n + 1), np.diff(graph.indptr)[:n + 1])
+    adj = torch.zeros(n, n, dtype=dtype, device=dev)
+    adj[torch.as_tensor(src - 1, device=dev),
+        torch.as_tensor(graph.indices.astype(np.int64) - 1, device=dev)] = 1
+    out = torch.zeros(n, n, dtype=torch.int32, device=dev)
+    for start in range(0, n, DEVICE_BFS_CHUNK):
+        m = min(DEVICE_BFS_CHUNK, n - start)
+        rows = torch.arange(m, device=dev)
+        frontier = torch.zeros(m, n, dtype=torch.bool, device=dev)
+        frontier[rows, start + rows] = True
+        visited = frontier.clone()
+        dist = out[start:start + m]
+        d = 0
+        while bool(frontier.any()):
+            d += 1
+            new = ((frontier.to(dtype) @ adj) > 0) & ~visited
+            dist.masked_fill_(new, d)
+            visited |= new
+            frontier = new
+    return out.cpu().numpy()
+
+
+def shortest_path_matrix(graph: CSRGraph, backend: str = "auto",
+                         n_threads: int = 0,
+                         device: str | torch.device = "cuda") -> np.ndarray:
+    """Dense (n, n) all-pairs hop-distance matrix over RAW 0-based ids.
+
+    backend: 'host' (numpy BFS), 'device' (dense frontier products on
+    `device`) or 'auto' ('device' for n <= DEVICE_BFS_MAX_NODES, else
+    'host': the JAX package's rule without its native library). n_threads
+    is accepted for the JAX signature and ignored by the numpy path, as
+    there."""
+    if backend == "auto":
+        backend = ("device" if graph.n_nodes <= DEVICE_BFS_MAX_NODES
+                   else "host")
+    if backend == "device":
+        return _bfs_device(graph, device)
+    if backend != "host":
+        raise ValueError(f"shortest_path_matrix backend={backend!r}: only "
+                         "'auto', 'host' and 'device' exist")
+    sources = np.arange(1, graph.n_nodes + 1, dtype=np.int64)
+    return _bfs_from_sources_host(graph, sources)
+
+
+def shortest_path_rows(graph: CSRGraph, sources: np.ndarray,
+                       backend: str = "auto",
+                       n_threads: int = 0) -> np.ndarray:
     """(len(sources), n) int32 hop distances from each 1-based source node
     (unreached = 0). The N/P similarities only read distances FROM the
-    subgraph/CC nodes (reference SubGNN.py:752-781), so serving never builds
-    the n^2 all-pairs matrix."""
+    subgraph/CC nodes (reference SubGNN.py:752-781), so serving, and the
+    precompute of a graph above the all-pairs size, never build the n^2
+    matrix. backend: 'auto', 'host' or 'fallback', all the numpy BFS here
+    (the JAX package's 'host' is its native library); n_threads is ignored
+    by it."""
+    if backend not in ("auto", "host", "fallback"):
+        raise ValueError(
+            f"shortest_path_rows backend={backend!r}: only 'auto', 'host' "
+            "and 'fallback' exist — there is no device variant for source "
+            "subsets")
     sources = np.ascontiguousarray(sources, dtype=np.int64)
     return _bfs_from_sources_host(graph, sources)

@@ -1,9 +1,13 @@
-"""Serving pipeline: load -> precompute -> build_model -> predict.
+"""Dataset pipeline: load -> precompute -> sample_anchors / split_data ->
+build_model -> Trainer.fit, and serving: load -> precompute -> predict.
 
-Port of the serving half of subgnn_tpu/train/runner.py (SubGNNPipeline):
-the same files, caches, RNG streams and request flow, with the model and
-the structure DTW on a torch device. Training runs through
-train/loop.py:Trainer; `SubGNNPipeline.run` is not ported yet.
+Port of subgnn_tpu/train/runner.py (SubGNNPipeline) without its mesh: the
+same files, caches, RNG streams and request flow, with the model, the
+structure DTW and (on small graphs) the all-pairs BFS on a torch device.
+Training runs through train/loop.py:Trainer on `split_data`,
+`sample_anchors` and `eval_cc_tables`; `SubGNNPipeline.run` (a whole
+training run with its JSON artifacts, anchor resampling, lr_find and
+resume) is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,11 +29,14 @@ from ..data.subgraphs import (MultiLabelBinarizer, read_subgraphs,
                               reindex_subgraphs)
 from ..device import resolve_device
 from ..models.subgnn import CHANNEL_CC_KEYS, SubGNNModel
-from ..precompute.border import border_sets_from_rows
-from ..precompute.shortest_paths import shortest_path_rows
-from ..precompute.similarities import (cached,
+from ..precompute.border import border_sets_from_rows, compute_border_sets
+from ..precompute.shortest_paths import (shortest_path_matrix,
+                                         shortest_path_rows)
+from ..precompute.similarities import (border_set_path, cached,
                                        compute_shortest_path_similarities,
-                                       struc_patches_path, struc_walks_path,
+                                       compute_structure_similarities,
+                                       np_sim_path, struc_patches_path,
+                                       struc_sim_path, struc_walks_path,
                                        structure_similarities_both)
 from ..sampling.anchors import (init_anchors_neighborhood,
                                 init_anchors_pos_ext, init_anchors_pos_int,
@@ -39,8 +46,16 @@ from ..sampling.walks import (perform_random_walks,
 from .sims import compact_sims_for_batch
 
 SPLITS = ("train", "val", "test")
+SPLIT_TAG = {"train": 0, "val": 1, "test": 2}
 PAD_VALUE = 0
 PREDICT_TAG = 3  # serving RNG stream, disjoint from the split tags 0-2
+
+# above this node count the (n, n) all-pairs matrix (>= 1.6 GB and growing
+# quadratically) is never materialized; NP sims BFS from CC sources only
+_FULL_SP_MAX_NODES = 20_000
+# an existing shortest_path_matrix.npy larger than this is memory-mapped, so
+# the NP-sim CC-min reads only the rows it needs
+_SP_MMAP_BYTES = 1 << 30
 
 
 def load_embeddings(path: Path) -> np.ndarray:
@@ -66,6 +81,7 @@ class SubGNNPipeline:
         self.device = resolve_device(device)
         self._loaded = False
         self.structure_anchors = self.int_walks = self.bor_walks = None
+        self.precompute_timings: Dict[str, float] = {}
         self._bfs_row_cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
         self._bfs_cache_lock = threading.Lock()
         self._serving_anchor_seqs: Dict[str, Any] = {}
@@ -108,43 +124,183 @@ class SubGNNPipeline:
     # ------------------------------------------------------------ precompute
 
     def precompute(self):
-        """What serving reads: the structure anchor pool and its internal/
-        border walks, cached under <task>/similarities with the JAX
-        package's (and the reference's) filenames."""
+        """Border sets, N/P shortest-path sims, the structure anchor pool and
+        its walks, and the structure DTW sims of every split, cached under
+        <task>/similarities with the JAX package's (and the reference's)
+        filenames (subgnn_tpu/train/runner.py:precompute without its mesh;
+        reference SubGNN.py:673-989). The NP-sim CC-min runs on the host;
+        the DTW kernel runs once per split and side on the pipeline's
+        device, and so does the all-pairs BFS of a graph of up to 4096
+        nodes. Each stage's seconds go to `precompute_timings` (and are
+        printed when over 5 s)."""
         if not self._loaded:
             raise RuntimeError("call load() first")
-        hp = self.hp
-        self.structure_anchors = self.int_walks = self.bor_walks = None
-        if not hp.use_structure:
-            return self
-        if hp.structure_similarity_fn != "dtw":
-            raise NotImplementedError(hp.structure_similarity_fn)
-        sim_dir = self.rc.similarities_path()
+        rc, hp = self.rc, self.hp
+        sim_dir = rc.similarities_path()
         recompute = hp.compute_similarities
         if hp.subset_data:
             # truncated splits: never read or write the full-data caches
             def cache(path, fn, recompute=False):
                 return fn()
         else:
+            sim_dir.mkdir(parents=True, exist_ok=True)
             cache = cached
-        self.structure_anchors = cache(
-            struc_patches_path(sim_dir, hp),
-            lambda: sample_structure_anchor_patches(
-                self.graph, hp, hp.seed, hp.max_sim_epochs),
-            recompute).astype(np.int32)
-        self.int_walks = cache(
-            struc_walks_path(sim_dir, hp, True),
-            lambda: perform_random_walks(self.graph, hp,
-                                         self.structure_anchors, True,
-                                         hp.seed),
-            recompute).astype(np.int32)
-        self.bor_walks = cache(
-            struc_walks_path(sim_dir, hp, False),
-            lambda: perform_random_walks(self.graph, hp,
-                                         self.structure_anchors, False,
-                                         hp.seed),
-            recompute).astype(np.int32)
+        self.precompute_timings = {}
+        t0 = time.time()
+
+        def stage(name):
+            nonlocal t0
+            dt = time.time() - t0
+            self.precompute_timings[name] = dt
+            if dt > 5:
+                print(f"[precompute] {name}: {dt:.1f}s", flush=True)
+            t0 = time.time()
+
+        self.border = {s: None for s in SPLITS}
+        if hp.use_neighborhood:
+            for s in SPLITS:
+                self.border[s] = cache(
+                    border_set_path(sim_dir, hp.neigh_sample_border_size, s),
+                    lambda s=s: compute_border_sets(
+                        self.graph, self.cc_ids[s],
+                        hp.neigh_sample_border_size),
+                    recompute)
+        stage("border sets")
+
+        self.np_sim = {s: None for s in SPLITS}
+        if hp.use_neighborhood or hp.use_position:
+            shortest = None   # (matrix or rows, row LUT or None), on a miss
+
+            def np_sim_inputs(s):
+                nonlocal shortest
+                if shortest is None:
+                    shortest = self._shortest(save=not hp.subset_data)
+                mat, lut = shortest
+                ids = self.cc_ids[s]
+                return mat, (ids if lut is None else lut[ids])
+
+            for s in SPLITS:
+                self.np_sim[s] = np.asarray(cache(
+                    np_sim_path(sim_dir, s),
+                    lambda s=s: compute_shortest_path_similarities(
+                        *np_sim_inputs(s)),
+                    recompute), dtype=np.float32)
+        stage("NP similarities")
+
+        self.int_s_sim = {s: None for s in SPLITS}
+        self.bor_s_sim = {s: None for s in SPLITS}
+        self.structure_anchors = self.int_walks = self.bor_walks = None
+        if hp.use_structure:
+            if hp.structure_similarity_fn != "dtw":
+                raise NotImplementedError(hp.structure_similarity_fn)
+            self.structure_anchors = cache(
+                struc_patches_path(sim_dir, hp),
+                lambda: sample_structure_anchor_patches(
+                    self.graph, hp, hp.seed, hp.max_sim_epochs),
+                recompute).astype(np.int32)
+            stage("structure pool")
+            self.int_walks = cache(
+                struc_walks_path(sim_dir, hp, True),
+                lambda: perform_random_walks(self.graph, hp,
+                                             self.structure_anchors, True,
+                                             hp.seed),
+                recompute).astype(np.int32)
+            self.bor_walks = cache(
+                struc_walks_path(sim_dir, hp, False),
+                lambda: perform_random_walks(self.graph, hp,
+                                             self.structure_anchors, False,
+                                             hp.seed),
+                recompute).astype(np.int32)
+            stage("structure walks")
+            for s in SPLITS:
+                for internal, out in ((True, self.int_s_sim),
+                                      (False, self.bor_s_sim)):
+                    out[s] = cache(
+                        struc_sim_path(sim_dir, hp, internal, s),
+                        lambda s=s, internal=internal:
+                            compute_structure_similarities(
+                                self.graph, self.cc_ids[s],
+                                self.structure_anchors, internal=internal,
+                                device=self.device),
+                        recompute).astype(np.float32)
+            stage("structure DTW similarities")
         return self
+
+    def _shortest(self, save: bool = True):
+        """(hop-distance rows, row LUT or None) for the NP-sim CC-min: an
+        existing shortest_path_matrix.npy (memory-mapped above
+        _SP_MMAP_BYTES); above _FULL_SP_MAX_NODES, BFS rows from the CC
+        nodes of every split only, with a LUT from 1-based node id to
+        1-based row (PAD 0 stays 0); else the full matrix, built (and
+        saved when `save`)."""
+        rc, hp = self.rc, self.hp
+        sp_path = rc.shortest_paths_path()
+        if sp_path.exists():
+            mm = "r" if sp_path.stat().st_size > _SP_MMAP_BYTES else None
+            return np.load(sp_path, mmap_mode=mm), None
+        if self.graph.n_nodes > _FULL_SP_MAX_NODES:
+            srcs = np.unique(np.concatenate(
+                [self.cc_ids[s].ravel() for s in SPLITS]))
+            srcs = srcs[srcs != PAD_VALUE].astype(np.int64)
+            rows = shortest_path_rows(self.graph, srcs,
+                                      n_threads=hp.n_processes)
+            lut = np.zeros(self.graph.n_nodes + 1, np.int32)
+            lut[srcs] = np.arange(1, len(srcs) + 1, dtype=np.int32)
+            return rows, lut
+        mat = shortest_path_matrix(self.graph, n_threads=hp.n_processes,
+                                   device=self.device)
+        if save:
+            np.save(sp_path, mat)
+        return mat, None
+
+    # --------------------------------------------------------------- anchors
+
+    def sample_anchors(self, seed: Optional[int] = None
+                       ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Per-split host anchor arrays, the form Trainer.fit / evaluate
+        take (subgnn_tpu/train/runner.py:sample_anchors; reference
+        SubGNN.py:1047-1061). pos_ext and the structure arrays are shared
+        by every split."""
+        hp = self.hp
+        seed = hp.seed if seed is None else seed
+        anchors: Dict[str, Dict[str, np.ndarray]] = {s: {} for s in SPLITS}
+        if hp.use_neighborhood:
+            for s in SPLITS:
+                anchors[s]["neigh_int"], anchors[s]["neigh_bor"] = \
+                    init_anchors_neighborhood(hp, self.cc_ids[s],
+                                              self.border[s], seed,
+                                              SPLIT_TAG[s])
+        if hp.use_position:
+            pos_ext = init_anchors_pos_ext(hp, self.graph, seed)
+            for s in SPLITS:
+                anchors[s]["pos_int"] = init_anchors_pos_int(
+                    hp, self.subgraphs[s], seed, SPLIT_TAG[s])
+                anchors[s]["pos_ext"] = pos_ext
+        if hp.use_structure:
+            _, idx, iw, bw = init_anchors_structure(
+                hp, self.structure_anchors, self.int_walks, self.bor_walks,
+                seed)
+            for s in SPLITS:
+                anchors[s].update(struc_pool_idx=idx, struc_int_walks=iw,
+                                  struc_bor_walks=bw)
+        return anchors
+
+    # ------------------------------------------------------------------ data
+
+    def split_data(self, split: str) -> SubgraphData:
+        """One split's arrays after precompute()
+        (subgnn_tpu/train/runner.py:split_data)."""
+        labels = self.labels[split]
+        if self.multilabel:
+            labels = self.binarizer.transform(labels)
+        else:
+            labels = np.asarray(labels, dtype=np.int64)
+        return SubgraphData(
+            subgraph_ids=pad_node_lists(self.subgraphs[split]),
+            cc_ids=self.cc_ids[split], labels=labels,
+            N_border=self.border[split], NP_sim=self.np_sim[split],
+            I_S_sim=self.int_s_sim[split], B_S_sim=self.bor_s_sim[split],
+            multilabel=self.multilabel)
 
     # ----------------------------------------------------------------- model
 
@@ -172,6 +328,18 @@ class SubGNNPipeline:
         params, state = model.init_params(gen, self.pretrained_embeds,
                                           train_cc, device=self.device)
         return model, params, state
+
+    def eval_cc_tables(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """The val and test CC tables, from the PRETRAINED embeddings, on the
+        pipeline's device, in the form Trainer(eval_cc_tables=...) takes;
+        None without hp.trainable_cc (the fourth value of the JAX
+        package's build_model, subgnn_tpu/train/runner.py:372-376; val/test
+        stay at this init as node embeddings train, a reference quirk)."""
+        if not self.hp.trainable_cc:
+            return None
+        return {s: {k: torch.as_tensor(v, device=self.device) for k, v in
+                    self._cc_tables_from_ids(self.cc_ids[s]).items()}
+                for s in ("val", "test")}
 
     # --------------------------------------------------------------- serving
 

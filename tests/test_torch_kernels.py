@@ -147,7 +147,9 @@ def test_dtw_kernel_block_warps_depend_on_grid_size_alone():
 # Tolerance, per output row: |kernel - plain| <= 1e-5 * sum of |g| over that
 # row's slots (fp32 sums of the same terms in another order), plus one bf16
 # ulp of the plain value where g, and so the output, is bf16 (the two sums may
-# round to neighbouring bf16 values).
+# round to neighbouring bf16 values). D of 32, 64, 128 and 256 with g 16-byte
+# aligned take the kernel's vector path; every other D, and a misaligned g,
+# its general path (slabs of up to 256 columns, scalar loads).
 
 def _segment_case(rng, case, D):
     """(ids, n_rows, extra padding tiles, g, tile width). The kernel cuts
@@ -195,18 +197,7 @@ def _row_tol(g, ids, out_rows, plain):
     return tol
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", ["uniform", "pad_heavy", "one_row",
-                                  "only_pad", "padding_tiles", "many_blocks",
-                                  "block_edge_start", "pad_straddle",
-                                  "small_plan"])
-@pytest.mark.parametrize("D,dtype", [
-    (128, torch.float32), (128, torch.bfloat16), (32, torch.bfloat16),
-    (256, torch.float32), (32, torch.float32), (64, torch.float32),
-    (64, torch.bfloat16), (256, torch.bfloat16)])
-@pytest.mark.parametrize("sw", [8, 16, 32, 64])
-def test_segment_matmul_kernel_matches_plain(cuda, monkeypatch, case, D,
-                                             dtype, sw):
+def _check_segment_case(cuda, monkeypatch, case, D, dtype, sw):
     from subgnn_tpu_torch.ops import embedding as E
     rng = np.random.default_rng(sum(map(ord, case)) * 1000 + D)
     ids, n_rows, extra, g_np, width = _segment_case(rng, case, D)
@@ -228,6 +219,57 @@ def test_segment_matmul_kernel_matches_plain(cuda, monkeypatch, case, D,
     assert (err <= _row_tol(g, ids, out_rows, ref)).all()
     assert (got[n_rows:] == 0).all()
     assert not any(t.any() for t in E._tickets.values())  # left 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "pad_heavy", "one_row",
+                                  "only_pad", "padding_tiles", "many_blocks",
+                                  "block_edge_start", "pad_straddle",
+                                  "small_plan"])
+@pytest.mark.parametrize("D,dtype", [
+    (128, torch.float32), (128, torch.bfloat16), (32, torch.bfloat16),
+    (256, torch.float32), (32, torch.float32), (64, torch.float32),
+    (64, torch.bfloat16), (256, torch.bfloat16)])
+@pytest.mark.parametrize("sw", [8, 16, 32, 64])
+def test_segment_matmul_kernel_matches_plain(cuda, monkeypatch, case, D,
+                                             dtype, sw):
+    _check_segment_case(cuda, monkeypatch, case, D, dtype, sw)
+
+
+# widths outside the vector set: a slab narrower than a lane's first column
+# (1, 8), part-filled slabs (48, 96, 100: 100 bf16 columns are 200-byte,
+# unaligned rows) and two slabs (384 = 256 + 128)
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "pad_heavy", "one_row",
+                                  "only_pad", "padding_tiles", "many_blocks",
+                                  "pad_straddle"])
+@pytest.mark.parametrize("D", [1, 8, 48, 96, 100, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sw", [8, 64])
+def test_segment_matmul_kernel_takes_any_width(cuda, monkeypatch, case, D,
+                                               dtype, sw):
+    _check_segment_case(cuda, monkeypatch, case, D, dtype, sw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_matmul_kernel_takes_misaligned_rows(cuda, dtype):
+    # a fast-set D whose g does not start on 16 bytes takes the general
+    # path, as the JAX package takes any layout
+    from subgnn_tpu_torch.ops import embedding as E
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 300, 2500)
+    plan = E.make_gather_plan(ids, 300).to(cuda)
+    g = torch.as_tensor(rng.normal(size=(ids.size * 128 + 1)), device=cuda,
+                        dtype=dtype)[1:].view(ids.size, 128)
+    assert g.data_ptr() % 16
+    got = E.segment_matmul(g, plan)
+    again = E.segment_matmul(g, plan)
+    ref = E.segment_matmul_torch(g, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - ref.float()).abs()
+    assert (err <= _row_tol(g, ids, 300, ref)).all()
 
 
 def test_segment_matmul_kernel_partition_depends_on_plan_size_alone():
@@ -253,11 +295,10 @@ def test_segment_matmul_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):         # plan left on the CPU
         E.segment_matmul(torch.zeros(100, 128, device=cuda), plan)
     plan = plan.to(cuda)
-    with pytest.raises(ValueError):         # D the kernel does not take
-        E.segment_matmul(torch.zeros(100, 96, device=cuda), plan)
-    with pytest.raises(ValueError):         # misaligned rows
-        E.segment_matmul(torch.zeros(100 * 128 + 1, device=cuda)[1:]
-                         .view(100, 128), plan)
+    with pytest.raises(ValueError):         # not contiguous
+        E.segment_matmul(torch.zeros(128, 100, device=cuda).t(), plan)
+    with pytest.raises(ValueError):         # no columns
+        E.segment_matmul(torch.zeros(100, 0, device=cuda), plan)
     with pytest.raises(TypeError):
         E.segment_matmul(torch.zeros(100, 128, device=cuda,
                                      dtype=torch.float16), plan)
