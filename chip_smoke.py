@@ -6,7 +6,8 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. build    — compile every CUDA source of the port (one nvcc per source,
                 all started together) and print the compiler's register
-                report;
+                report; beside them, the host C++ library (g++, BFS and
+                walks, subgnn_tpu_torch/ops/native.py) and its seconds;
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card: DTW at serving shapes (G=2 groups x 64*15 comps x 150
                 pool patches, ragged and empty rows) and at a long case
@@ -23,10 +24,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   3. serving  — the port's SubGNNPipeline.predict at the flagship widths
                 (D=128, 2 layers, all channels, float32) on a synthetic
                 8192-node, average-degree-16 graph: the full precompute
-                (its one-time 8192^2 host BFS and stage times printed), then
-                4 requests of 64 novel 15-node subgraphs. Logits must be
-                finite, the DTW kernel must launch on every request, and one
-                request recomputed by the port on the CPU must agree;
+                (its one-time 8192^2 all-pairs BFS in the C++ library, once,
+                and stage times printed), then 4 requests of 64 novel 15-node
+                subgraphs, each printing its BFS sources, cache misses,
+                bfs_rows_wall and ms per missed source. Logits must be
+                finite, the DTW kernel must launch on every request, the C++
+                BFS on every request with misses, request 0's served rows
+                (up to 256 of its sources) must equal the numpy BFS's, and
+                one request recomputed by the port on the CPU must agree;
   4. dataset  — the full-dataset path on the card: a task of its own on the
                 same graph (384 train / 128 val / 128 test subgraphs of 15
                 nodes, D=128 embeddings, the serving task's
@@ -40,10 +45,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 twice a step). Then the repository's mini fixture (a D=8
                 embedding table, off segment_matmul's vector set) through
                 the same path for its config's 3 epochs, against the same run
-                on the CPU (losses rel 1e-3); and shortest_path_matrix's
-                device BFS on a 4096-node seeded graph against
-                shortest_path_rows at 512 sampled sources (equal);
-  5. training — the bench's training step (subgnn_tpu_torch/bench.py) at
+                on the CPU (losses rel 1e-3);
+  5. BFS      — on seeded graphs of 4096 and 8192 nodes (average degree
+                16): the C++ all-pairs BFS at hp.n_processes threads and at
+                every hardware thread, shortest_path_matrix's device BFS,
+                and at 512 sampled sources the C++ rows on one thread and
+                the numpy rows, each timed; every matrix and row set must be
+                equal;
+  6. training — the bench's training step (subgnn_tpu_torch/bench.py) at
                 the flagship widths: 20 bf16 steps at B=1280 (finite losses,
                 every leaf that gets a gradient changes, segment_matmul
                 launched exactly twice per step), with their mpn_edges_per_s;
@@ -51,7 +60,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 (loss rel 1e-4, every gradient leaf atol 1e-4 x max|leaf|);
                 Trainer.fit for 2 epochs on build_training_fixture at the
                 flagship widths (finite val metrics, a top-k checkpoint);
-  6. timings  — cold/warm per-request stage timings; each kernel's time
+  7. timings  — cold/warm per-request stage timings; each kernel's time
                 against its plain version's, its lower bound on the card and
                 (segment_matmul) index_add_, at the main path's own inputs.
                 Each kernel record holds `ms` (= `call_ms`: CUDA events
@@ -64,7 +73,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 Each path's launch counts are zeroed just before it and read just after:
 the DTW record's launches are the 4 serving requests', segment_matmul's are
 Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset
-phase's runs are counted on their own, for their checks).
+phase's runs are counted on their own, for their checks); the C++ BFS's
+calls are counted over serving's precompute and over its requests.
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, and when run outside a checkout of the repository.
@@ -75,8 +85,10 @@ import argparse
 import json
 import math
 import sys
+import os
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -96,7 +108,8 @@ N_REQUESTS, REQUEST_SIZE, SUBGRAPH_NODES = 4, 64, 15
 DATASET_SPLITS = {"train": 384, "val": 128, "test": 128}
 ANY_WIDTHS = (8, 96, 100, 384)   # segment_matmul's general path
 STRUC_SIM_TOL = 1e-6             # structure sims, card vs CPU
-BFS_NODES, BFS_SOURCES = 4096, 512
+BFS_SIZES, BFS_SOURCES = (4096, N_NODES), 512
+BFS_CHECK_SOURCES = 256     # request 0's served rows held against numpy
 MINI = HERE / "tests" / "fixtures" / "mini_multilabel"
 
 
@@ -221,19 +234,14 @@ def plan_stats(ids, plan):
             f"{int((ids == 0).sum())}, table rows {plan.n_rows}")
 
 
-def dataset_phase(root: Path, graph, hp, rng, seed: int, dev):
+def dataset_phase(root: Path, graph, hp, rng, seed: int):
     """Phase 4: precompute + Trainer.fit on a task of their own (the
-    serving task's graph and path matrix), the D=8 mini fixture, and the
-    device BFS."""
+    serving task's graph and path matrix), and the D=8 mini fixture."""
     import shutil
 
-    import torch
     from subgnn_tpu_torch.config import HParams, RunConfig, \
         load_commented_json
-    from subgnn_tpu_torch.data.graph import CSRGraph
     from subgnn_tpu_torch.ops import dtw as kdtw
-    from subgnn_tpu_torch.precompute.shortest_paths import (
-        shortest_path_matrix, shortest_path_rows)
     from subgnn_tpu_torch.precompute.similarities import \
         compute_structure_similarities
     from subgnn_tpu_torch.train.runner import SPLITS, SubGNNPipeline
@@ -320,26 +328,83 @@ def dataset_phase(root: Path, graph, hp, rng, seed: int, dev):
     check(max(diffs) <= CPU_GPU_REL_TOL, "mini fixture: card and CPU "
                                          "training disagree")
 
-    # the device BFS at the size `auto` still sends to the card
+
+def served_rows_check(pipe, req, res, pads, seed):
+    """Request 0 is cold: every BFS source missed the row cache. Hold the
+    rows the C++ library served (still cached) against the numpy BFS at up
+    to BFS_CHECK_SOURCES of them."""
+    from subgnn_tpu_torch.data.dataset import initialize_cc_ids
+    from subgnn_tpu_torch.precompute.shortest_paths import \
+        _bfs_from_sources_host
+    srcs = np.unique(initialize_cc_ids(pipe.graph, req, **pads))
+    srcs = srcs[srcs != 0].astype(np.int64)
+    check(res["timings"]["bfs_cache_miss"] == len(srcs),
+          "request 0: not every BFS source missed the cache")
+    pick = np.sort(np.random.default_rng(seed + 4).choice(
+        srcs, min(BFS_CHECK_SOURCES, len(srcs)), replace=False))
+    served = np.stack([pipe._bfs_row_cache[int(s)] for s in pick])
+    t0 = time.perf_counter()
+    want = _bfs_from_sources_host(pipe.graph, pick)
+    t_np = time.perf_counter() - t0
+    return {"sources": len(pick), "missed": len(srcs),
+            "equal": bool(np.array_equal(served, want)),
+            "numpy_ms_per_source": t_np / len(pick) * 1e3}
+
+
+def bfs_phase(hp, seed: int, dev):
+    """Phase 5: the all-pairs BFS on the host (C++) and on the card, and the
+    numpy rows, on seeded graphs of each size in BFS_SIZES."""
+    import torch
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    from subgnn_tpu_torch.precompute.shortest_paths import (
+        shortest_path_matrix, shortest_path_rows)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    threads = {"n_processes": hp.n_processes, "all": 0}
+    print(f"[bfs] host threads: os.cpu_count() {os.cpu_count()}, usable "
+          f"{len(os.sched_getaffinity(0))}; hp.n_processes {hp.n_processes}")
     brng = np.random.default_rng(seed + 3)
-    edges = brng.integers(1, BFS_NODES + 1, (BFS_NODES * 4, 2))
-    edges = edges[edges[:, 0] != edges[:, 1]]
-    bgraph = CSRGraph.from_edges(edges, n_nodes=BFS_NODES)
-    t0 = time.perf_counter()
-    mat = shortest_path_matrix(bgraph, backend="device", device=dev)
-    torch.cuda.synchronize()
-    t_dev = time.perf_counter() - t0
-    srcs = np.sort(brng.choice(np.arange(1, BFS_NODES + 1), BFS_SOURCES,
-                               replace=False))
-    t0 = time.perf_counter()
-    rows = shortest_path_rows(bgraph, srcs)
-    t_host = time.perf_counter() - t0
-    equal = np.array_equal(mat[srcs - 1], rows)
-    print(f"[dataset] device BFS, {BFS_NODES} nodes (max hop "
-          f"{int(mat.max())}, unreached pairs {int((mat == 0).sum())}): "
-          f"{t_dev:.3f}s for all {BFS_NODES} sources; host BFS {t_host:.3f}s "
-          f"for {BFS_SOURCES}; rows equal {equal}")
-    check(equal, "device BFS disagrees with shortest_path_rows")
+    # the first device BFS pays for cuBLAS's set-up: take it here
+    warm = CSRGraph.from_edges(brng.integers(1, 257, (1024, 2)), n_nodes=256)
+    shortest_path_matrix(warm, backend="device", device=dev)
+    for n in BFS_SIZES:
+        edges = brng.integers(1, n + 1, (n * AVG_DEGREE // 2, 2))
+        g = CSRGraph.from_edges(edges[edges[:, 0] != edges[:, 1]], n_nodes=n)
+        srcs = np.sort(brng.choice(np.arange(1, n + 1), BFS_SOURCES,
+                                   replace=False))
+        secs, mats = {}, {}
+        for name, k in threads.items():
+            mats[name], secs[f"cpp_all_pairs_{name}"] = timed(
+                lambda k=k: shortest_path_matrix(g, backend="host",
+                                                 n_threads=k))
+        mats["device"], secs["device_all_pairs"] = timed(
+            lambda: shortest_path_matrix(g, backend="device", device=dev))
+        cpp_rows, secs["cpp_rows_1_thread"] = timed(
+            lambda: shortest_path_rows(g, srcs, backend="host", n_threads=1))
+        np_rows, secs["numpy_rows"] = timed(
+            lambda: shortest_path_rows(g, srcs, backend="fallback"))
+        ref = mats["all"]
+        equal = (all(np.array_equal(m, ref) for m in mats.values())
+                 and np.array_equal(cpp_rows, ref[srcs - 1])
+                 and np.array_equal(np_rows, ref[srcs - 1]))
+        per_src = {k: v / (BFS_SOURCES if "rows" in k else n) * 1e3
+                   for k, v in secs.items()}
+        ratio = secs["device_all_pairs"] / secs["cpp_all_pairs_n_processes"]
+        print(f"[bfs] {n} nodes, {len(g.indices) // 2} edges (max hop "
+              f"{int(ref.max())}, unreached pairs {int((ref == 0).sum())}): "
+              f"seconds {json.dumps(secs)}; ms per source "
+              f"{json.dumps(per_src)}; C++ (n_threads {hp.n_processes} and "
+              f"0), device and numpy agree {equal}; device / C++ at "
+              f"n_processes {ratio!r}")
+        check(equal, f"BFS at {n} nodes: the C++, device and numpy BFS "
+                     f"disagree")
+        del mats, ref
 
 
 def main(argv=None) -> int:
@@ -368,6 +433,7 @@ def main(argv=None) -> int:
     from subgnn_tpu_torch.ops import build
     from subgnn_tpu_torch.ops import dtw as kdtw
     from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.ops import native
     from subgnn_tpu_torch.train.loop import (Trainer, copy_tree,
                                              loss_and_grads, make_optimizer,
                                              mpn_edges_per_step, train_step)
@@ -380,8 +446,12 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
-    secs = build.build()
-    print(f"[build] {json.dumps(secs)} wall {time.perf_counter() - t0:.2f}s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_lib = pool.submit(native.build)   # g++ beside the nvcc builds
+        secs = build.build()
+        lib_path, gxx_s = host_lib.result()
+    print(f"[build] {json.dumps(secs)} wall {time.perf_counter() - t0:.2f}s; "
+          f"host library (g++) {gxx_s:.2f}s -> {lib_path.name}")
     for name in build.SOURCES:
         log = build.library_path(name).with_suffix(".log")
         if log.exists():
@@ -508,21 +578,33 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         pipe = SubGNNPipeline(rc, hp, device="cuda")
         pipe.load()
+        native.bfs_all_pairs.launches = 0
         pipe.precompute()
+        all_pairs_launches = native.bfs_all_pairs.launches
         _, params, state = pipe.build_model(args.seed)
         print(f"[serving] load+precompute+build_model "
               f"{time.perf_counter() - t0:.2f}s; pool "
               f"{pipe.structure_anchors.shape}; precompute stages (s) "
-              f"{json.dumps(pipe.precompute_timings)}")
+              f"{json.dumps(pipe.precompute_timings)}; NP similarities "
+              f"(the C++ all-pairs BFS at n_threads={hp.n_processes}, "
+              f"{all_pairs_launches} call) "
+              f"{pipe.precompute_timings['NP similarities']!r}s")
+        check(all_pairs_launches == 1, f"serving precompute: "
+              f"{all_pairs_launches} C++ all-pairs BFS calls, expected 1")
 
         results = []
         kdtw.dtw_distance_grouped.launches = 0
-        for req in requests:
+        native.bfs_from_sources.launches = 0
+        for i, req in enumerate(requests):
             before = kdtw.dtw_distance_grouped.launches
             res = pipe.predict(req, params=params, state=state, **pads)
             res["dtw_launches"] = kdtw.dtw_distance_grouped.launches - before
             results.append(res)
+            if i == 0:
+                bfs_check = served_rows_check(pipe, req, res, pads,
+                                              args.seed)
         launches = kdtw.dtw_distance_grouped.launches
+        bfs_launches = native.bfs_from_sources.launches
         for i, res in enumerate(results):
             check(res["logits"].shape == (REQUEST_SIZE, pipe.num_classes),
                   f"request {i}: logits shape {res['logits'].shape}")
@@ -533,6 +615,25 @@ def main(argv=None) -> int:
         print(f"[serving] {N_REQUESTS} requests x {REQUEST_SIZE} subgraphs: "
               f"finite logits, dtw kernel launches per request "
               f"{[r['dtw_launches'] for r in results]}")
+        missed = sum(r["timings"]["bfs_cache_miss"] > 0 for r in results)
+        for i, res in enumerate(results):
+            t = res["timings"]
+            miss = t["bfs_cache_miss"]
+            print(f"[serving] request {i} BFS (C++, n_threads="
+                  f"{hp.n_processes}): bfs_srcs {t['bfs_srcs']}, "
+                  f"bfs_cache_miss {miss}, bfs_rows_wall "
+                  f"{t['bfs_rows_wall']!r}s, "
+                  f"{t['bfs_rows_wall'] / miss * 1e3 if miss else 0.0!r} ms "
+                  f"per missed source; total {t['total']!r}s")
+        print(f"[serving] request 0's served rows vs the numpy BFS at "
+              f"{bfs_check['sources']} of its {bfs_check['missed']} missed "
+              f"sources: equal {bfs_check['equal']} (numpy "
+              f"{bfs_check['numpy_ms_per_source']!r} ms a source); C++ BFS "
+              f"calls over the requests {bfs_launches} ({missed} with misses)")
+        check(bfs_check["equal"], "request 0: the C++ BFS rows served "
+                                  "differ from the numpy BFS's")
+        check(bfs_launches == missed >= 1, f"serving: {bfs_launches} C++ BFS "
+              f"calls for {missed} requests with cache misses")
 
         cpu_pipe = SubGNNPipeline(rc, hp, device="cpu")
         cpu_pipe.load()
@@ -589,7 +690,10 @@ def main(argv=None) -> int:
               f"{json.dumps(dev_t['activities'])}")
 
         # ------------------------------------------------------ 4. dataset
-        dataset_phase(root, graph, hp, rng, args.seed, dev)
+        dataset_phase(root, graph, hp, rng, args.seed)
+
+    # ------------------------------------------------------------ 5. BFS
+    bfs_phase(hp, args.seed, dev)
 
     dtw_record = {"name": "dtw_grouped", "route": "cuda",
                   "source": "subgnn_tpu_torch/csrc/dtw.cu",
@@ -600,7 +704,7 @@ def main(argv=None) -> int:
                   "bits_equal": req_same, "device_ms": dev_t["device_ms"],
                   "span_ms": dev_t["span_ms"], "call_ms": ms}
 
-    # --------------------------------------------------------- 4. training
+    # --------------------------------------------------------- 6. training
     # 20 bf16 steps at B=1280, timed in runs of 5 (before the CPU recompute
     # below, whose CPU work would share the host with the launching thread)
     model, hp, params, state, batch, anchors = benches["bfloat16"]
@@ -716,7 +820,7 @@ def main(argv=None) -> int:
           f"checkpoint {best.name} ({ckpt_bytes} bytes); "
           f"{time.perf_counter() - t0:.2f}s")
 
-    # ------------------------------------------------- 5. segment timings
+    # ------------------------------------------------- 7. segment timings
     _, _, params, _, batch, anchors = benches["bfloat16"]
     rows = params["node_embed"].shape[0]
     timed = {}

@@ -1,18 +1,24 @@
 """BFS hop distances: the all-pairs matrix and rows from a subset of sources.
 
-Port of subgnn_tpu/precompute/shortest_paths.py without its mesh and native
-paths. Output contract of both functions: int32 rows indexed by RAW 0-based
-node id, hop distance, unreached nodes left at 0 (the np.zeros fill artifact
-of the reference precompute, prepare_dataset/precompute_graph_metrics.py:
+Port of subgnn_tpu/precompute/shortest_paths.py without its mesh paths.
+Output contract of both functions: int32 rows indexed by RAW 0-based node
+id, hop distance, unreached nodes left at 0 (the np.zeros fill artifact of
+the reference precompute, prepare_dataset/precompute_graph_metrics.py:
 23-26). Hop distances are exact, so every backend gives the same rows.
 
   * shortest_path_matrix — the dense (n, n) matrix the full-dataset
-    precompute caches as shortest_path_matrix.npy. Backends: 'host', the
-    numpy frontier BFS; 'device', frontier products against a dense
-    adjacency on a torch device (the JAX package's _bfs_device); 'auto',
-    'device' for n <= DEVICE_BFS_MAX_NODES, else 'host'.
+    precompute caches as shortest_path_matrix.npy. Backends: 'host' and
+    'auto', the multithreaded C++ BFS of ops/native.py (the JAX package's
+    'auto' rule whenever its library is there); 'device', frontier products
+    against a dense adjacency on a torch device (the JAX package's
+    _bfs_device), only on request.
   * shortest_path_rows — rows from the given sources only (serving, and
-    precompute above the all-pairs size), on the host.
+    precompute above the all-pairs size): 'auto' and 'host' through the
+    C++ BFS, 'fallback' the numpy BFS.
+
+The C++ library builds with g++ at first use; where it cannot build, 'auto'
+and 'host' raise rather than drop to the numpy BFS, which is kept as the
+plain version that the tests and the chip smoke test hold it against.
 """
 from __future__ import annotations
 
@@ -21,10 +27,8 @@ import torch
 
 from ..data.graph import CSRGraph
 from ..device import resolve_device
+from ..ops import native
 
-# 'auto' builds the all-pairs matrix on the device up to this many nodes:
-# a dense (n, n) adjacency (32 MB in bf16 at 4096)
-DEVICE_BFS_MAX_NODES = 4096
 DEVICE_BFS_CHUNK = 256      # BFS sources per frontier product
 
 
@@ -101,21 +105,15 @@ def shortest_path_matrix(graph: CSRGraph, backend: str = "auto",
                          device: str | torch.device = "cuda") -> np.ndarray:
     """Dense (n, n) all-pairs hop-distance matrix over RAW 0-based ids.
 
-    backend: 'host' (numpy BFS), 'device' (dense frontier products on
-    `device`) or 'auto' ('device' for n <= DEVICE_BFS_MAX_NODES, else
-    'host': the JAX package's rule without its native library). n_threads
-    is accepted for the JAX signature and ignored by the numpy path, as
-    there."""
-    if backend == "auto":
-        backend = ("device" if graph.n_nodes <= DEVICE_BFS_MAX_NODES
-                   else "host")
+    backend: 'auto' and 'host', the C++ BFS with `n_threads` threads (0 =
+    every hardware thread; the hp.n_processes knob); 'device', dense
+    frontier products on `device`."""
     if backend == "device":
         return _bfs_device(graph, device)
-    if backend != "host":
+    if backend not in ("auto", "host"):
         raise ValueError(f"shortest_path_matrix backend={backend!r}: only "
                          "'auto', 'host' and 'device' exist")
-    sources = np.arange(1, graph.n_nodes + 1, dtype=np.int64)
-    return _bfs_from_sources_host(graph, sources)
+    return native.bfs_all_pairs(graph, n_threads=n_threads)
 
 
 def shortest_path_rows(graph: CSRGraph, sources: np.ndarray,
@@ -125,13 +123,14 @@ def shortest_path_rows(graph: CSRGraph, sources: np.ndarray,
     (unreached = 0). The N/P similarities only read distances FROM the
     subgraph/CC nodes (reference SubGNN.py:752-781), so serving, and the
     precompute of a graph above the all-pairs size, never build the n^2
-    matrix. backend: 'auto', 'host' or 'fallback', all the numpy BFS here
-    (the JAX package's 'host' is its native library); n_threads is ignored
-    by it."""
+    matrix. backend: 'auto' and 'host', the C++ BFS with `n_threads`
+    threads; 'fallback', the numpy BFS (single-threaded)."""
     if backend not in ("auto", "host", "fallback"):
         raise ValueError(
             f"shortest_path_rows backend={backend!r}: only 'auto', 'host' "
-            "and 'fallback' exist — there is no device variant for source "
-            "subsets")
-    sources = np.ascontiguousarray(sources, dtype=np.int64)
-    return _bfs_from_sources_host(graph, sources)
+            "(C++ threads) and 'fallback' (numpy) exist — there is no device "
+            "variant for source subsets")
+    if backend == "fallback":
+        return _bfs_from_sources_host(
+            graph, np.ascontiguousarray(sources, dtype=np.int64))
+    return native.bfs_from_sources(graph, sources, n_threads=n_threads)

@@ -2,8 +2,9 @@
 build_model -> Trainer.fit, and serving: load -> precompute -> predict.
 
 Port of subgnn_tpu/train/runner.py (SubGNNPipeline) without its mesh: the
-same files, caches, RNG streams and request flow, with the model, the
-structure DTW and (on small graphs) the all-pairs BFS on a torch device.
+same files, caches, RNG streams and request flow, with the model and the
+structure DTW on a torch device and every BFS (the all-pairs matrix,
+serving's rows on a worker thread) in the C++ host library.
 Training runs through train/loop.py:Trainer on `split_data`,
 `sample_anchors` and `eval_cc_tables`; `SubGNNPipeline.run` (a whole
 training run with its JSON artifacts, anchor resampling, lr_find and
@@ -128,11 +129,11 @@ class SubGNNPipeline:
         its walks, and the structure DTW sims of every split, cached under
         <task>/similarities with the JAX package's (and the reference's)
         filenames (subgnn_tpu/train/runner.py:precompute without its mesh;
-        reference SubGNN.py:673-989). The NP-sim CC-min runs on the host;
-        the DTW kernel runs once per split and side on the pipeline's
-        device, and so does the all-pairs BFS of a graph of up to 4096
-        nodes. Each stage's seconds go to `precompute_timings` (and are
-        printed when over 5 s)."""
+        reference SubGNN.py:673-989). The all-pairs BFS (the C++ host
+        library, hp.n_processes threads) and the NP-sim CC-min run on the
+        host; the DTW kernel runs once per split and side on the
+        pipeline's device. Each stage's seconds go to `precompute_timings`
+        (and are printed when over 5 s)."""
         if not self._loaded:
             raise RuntimeError("call load() first")
         rc, hp = self.rc, self.hp
@@ -354,8 +355,8 @@ class SubGNNPipeline:
             missing = np.array([s for s in srcs if int(s) not in cache],
                                dtype=np.int64)
             if missing.size:
-                for s, row in zip(missing,
-                                  shortest_path_rows(self.graph, missing)):
+                for s, row in zip(missing, shortest_path_rows(
+                        self.graph, missing, n_threads=hp.n_processes)):
                     cache[int(s)] = row.copy()
             timings["bfs_srcs"] = int(srcs.size)
             timings["bfs_cache_miss"] = int(missing.size)

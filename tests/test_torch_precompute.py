@@ -1,11 +1,12 @@
 """Full-dataset precompute of the port against the JAX package's, on the CPU.
 
 Each test holds a JAX function against its port on the same inputs: the
-border sets, the all-pairs BFS matrix (the port's numpy host BFS and its
-torch frontier-product BFS), SubGNNPipeline.precompute on copies of the
-mini fixture (the same cache file names with equal arrays), its row-subset
-and memory-map branches, sample_anchors / split_data / the eval CC tables,
-and one Trainer.fit epoch from the pipeline's outputs.
+border sets, the all-pairs BFS matrix (the port's C++ host BFS and its
+torch frontier-product BFS; rows also from the numpy BFS),
+SubGNNPipeline.precompute on copies of the mini fixture (the same cache
+file names with equal arrays), its row-subset and memory-map branches,
+sample_anchors / split_data / the eval CC tables, and one Trainer.fit epoch
+from the pipeline's outputs.
 
 Tolerances: border sets, hop distances, NP sims, the structure pool, its
 walks and every anchor array are exact; structure sims atol 1e-6 (the same
@@ -95,7 +96,7 @@ def test_border_sets_match_jax(radius, shift_compat):
         assert got.dtype == np.int32
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["auto", "host", "device"])
 @pytest.mark.parametrize("graph", ["mini", "isolated"])
 def test_shortest_path_matrix_matches_jax(backend, graph):
     gj, gt = _mini_graphs() if graph == "mini" else _random_graph()
@@ -104,7 +105,9 @@ def test_shortest_path_matrix_matches_jax(backend, graph):
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     src = np.array([1, 5, gt.n_nodes], np.int64)
-    np.testing.assert_array_equal(shortest_path_rows(gt, src), want[src - 1])
+    for rows_backend in ("auto", "host", "fallback"):
+        np.testing.assert_array_equal(
+            shortest_path_rows(gt, src, backend=rows_backend), want[src - 1])
 
 
 def test_shortest_path_backends_refuse_what_they_do_not_take(monkeypatch):

@@ -10,6 +10,7 @@ another order).
 """
 import ast
 import json
+import re
 import shutil
 from pathlib import Path
 
@@ -258,3 +259,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "optax", "subgnn_tpu"), \
                 f"{path.relative_to(REPO)} imports {mod}"
+    # nor reads, builds or loads the JAX package's host library: no port
+    # file names a path under subgnn_tpu/native, as text or as path parts
+    native_files = [REPO / "chip_smoke.py", *sorted(
+        p for p in (REPO / "subgnn_tpu_torch").rglob("*")
+        if p.suffix in (".py", ".cpp", ".cu"))]
+    assert any(p.suffix == ".cpp" for p in native_files)
+    for path in native_files:
+        text = path.read_text()
+        assert not re.search(r"subgnn_tpu[/\\]native|libsubgnn_native\.so",
+                             text), f"{path.relative_to(REPO)}"
+        if path.suffix == ".py":
+            parts = [n.value for n in ast.walk(ast.parse(text))
+                     if isinstance(n, ast.Constant)]
+            assert "subgnn_tpu" not in parts, f"{path.relative_to(REPO)}"
