@@ -46,13 +46,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 embedding table, off segment_matmul's vector set) through
                 the same path for its config's 3 epochs, against the same run
                 on the CPU (losses rel 1e-3);
-  5. BFS      — on seeded graphs of 4096 and 8192 nodes (average degree
+  5. run      — whole training runs through the port's CLIs, in-process
+                (main() with sys.argv set) on -device cuda, at the flagship
+                widths (lin_dropout 0.1, anchor resampling) on a fresh task
+                of the same shape as phase 4's (no similarities cache; the
+                serving graph and matrix through -graph_path and
+                -shortest_paths_path): (a) cli.train for 3 epochs with
+                top-3 checkpoints: the four JSON artifacts and a TB event
+                file, exactly 6 DTW launches, segment_matmul twice per fit
+                step, finite test metrics; (b) -resume from (a)'s epoch-0
+                checkpoint: epochs 1-2 train/val losses within rel 1e-4 of
+                (a)'s (bits equal printed); (c) -restoreModelPath
+                -restoreModelName -noTrain on (a)'s best checkpoint:
+                test_results.json within rel 1e-5 of (a)'s; (d) auto_lr_find
+                and 1 epoch: the found lr finite, in [1e-6/3, 3e-2/3], and
+                printed (its sweep launches no kernel: segment_matmul stays
+                at 2 per fit step); (e) cli.test, 2 seeds x 1 epoch: finite
+                means in experiment_results.json; (f) cli.train_config on
+                the mini fixture's config, 2 trials x 1 epoch: 2 trials in
+                study.json; (g) the mini fixture's SubGNNPipeline.run on the
+                card and on the CPU: per-epoch losses within rel 1e-3. Each
+                step's seconds and launch counts, and the phase's seconds,
+                are printed;
+  6. BFS      — on seeded graphs of 4096 and 8192 nodes (average degree
                 16): the C++ all-pairs BFS at hp.n_processes threads and at
                 every hardware thread, shortest_path_matrix's device BFS,
                 and at 512 sampled sources the C++ rows on one thread and
                 the numpy rows, each timed; every matrix and row set must be
                 equal;
-  6. training — the bench's training step (subgnn_tpu_torch/bench.py) at
+  7. training — the bench's training step (subgnn_tpu_torch/bench.py) at
                 the flagship widths: 20 bf16 steps at B=1280 (finite losses,
                 every leaf that gets a gradient changes, segment_matmul
                 launched exactly twice per step), with their mpn_edges_per_s;
@@ -60,7 +82,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 (loss rel 1e-4, every gradient leaf atol 1e-4 x max|leaf|);
                 Trainer.fit for 2 epochs on build_training_fixture at the
                 flagship widths (finite val metrics, a top-k checkpoint);
-  7. timings  — cold/warm per-request stage timings; each kernel's time
+  8. timings  — cold/warm per-request stage timings; each kernel's time
                 against its plain version's, its lower bound on the card and
                 (segment_matmul) index_add_, at the main path's own inputs.
                 Each kernel record holds `ms` (= `call_ms`: CUDA events
@@ -73,8 +95,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 Each path's launch counts are zeroed just before it and read just after:
 the DTW record's launches are the 4 serving requests', segment_matmul's are
 Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset
-phase's runs are counted on their own, for their checks); the C++ BFS's
-calls are counted over serving's precompute and over its requests.
+and run phases' runs are counted on their own, for their checks); the C++
+BFS's calls are counted over serving's precompute and over its requests.
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, and when run outside a checkout of the repository.
@@ -82,6 +104,8 @@ device, and when run outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import sys
@@ -111,6 +135,11 @@ STRUC_SIM_TOL = 1e-6             # structure sims, card vs CPU
 BFS_SIZES, BFS_SOURCES = (4096, N_NODES), 512
 BFS_CHECK_SOURCES = 256     # request 0's served rows held against numpy
 MINI = HERE / "tests" / "fixtures" / "mini_multilabel"
+RUN_EPOCHS = 3              # run phase (a); (b) resumes from epoch 0
+RUN_DROPOUT = 0.1           # lin_dropout of (a)/(b): the resume must
+                            # restore the card's dropout generator
+RESUME_REL_TOL = 1e-4       # (b) vs (a), the same run on one card
+RESTORE_REL_TOL = 1e-5      # (c) vs (a), one checkpoint tested twice
 
 
 def check(cond, msg):
@@ -327,6 +356,225 @@ def dataset_phase(root: Path, graph, hp, rng, seed: int):
           "mini fixture: wrong number of epochs")
     check(max(diffs) <= CPU_GPU_REL_TOL, "mini fixture: card and CPU "
                                          "training disagree")
+
+
+def drive(main, prog, args):
+    """Run a CLI's main() in this process with sys.argv set (so that the
+    launch counters can be read after it); echo its standard output with a
+    prefix and return it."""
+    buf = io.StringIO()
+    saved = sys.argv
+    sys.argv = [prog] + [str(a) for a in args]
+    try:
+        with contextlib.redirect_stdout(buf):
+            main()
+    finally:
+        sys.argv = saved
+        for line in buf.getvalue().splitlines():
+            print(f"[run] {prog}: {line}")
+    return buf.getvalue()
+
+
+def epoch_metas(run_dir: Path):
+    """{epoch: checkpoint meta} of a run's top-k checkpoints (every epoch's
+    metrics at full precision, the step count after it)."""
+    from subgnn_tpu_torch.train.checkpoint import load_checkpoint
+    metas = {}
+    for path in sorted((run_dir / "checkpoints").glob("*.ckpt")):
+        meta = load_checkpoint(path)["meta"]
+        metas[int(meta["epoch"])] = dict(meta, file=path.name)
+    return metas
+
+
+def finite_metrics(metrics, prefix):
+    return all(math.isfinite(metrics[f"{prefix}_{k}"])
+               for k in ("loss", "micro_f1", "acc", "auroc"))
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def run_phase(root: Path, graph, hp, rng, seed: int):
+    """Phase 5: whole training runs through the port's CLIs on the card,
+    on a fresh task (no similarities cache) on the serving graph, and the
+    mini fixture's run() on the card against the CPU."""
+    import shutil
+
+    from subgnn_tpu_torch.cli import test as test_cli
+    from subgnn_tpu_torch.cli import train as train_cli
+    from subgnn_tpu_torch.cli import train_config as config_cli
+    from subgnn_tpu_torch.config import HParams, RunConfig, \
+        load_commented_json
+    from subgnn_tpu_torch.ops import dtw as kdtw
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.runner import SubGNNPipeline
+
+    t_phase = time.perf_counter()
+    serving = root / "synthetic"
+    task = root / "run"
+    write_split_task(task, graph, rng, DATASET_SPLITS)
+    # cli.test reads the task directory's own files
+    shutil.copy(serving / "edge_list.txt", task / "edge_list.txt")
+    (task / "shortest_path_matrix.npy").symlink_to(
+        serving / "shortest_path_matrix.npy")
+    hyp = dict(hp.to_dict(), max_epochs=RUN_EPOCHS, seed=seed,
+               resample_anchor_patches=True, lin_dropout=RUN_DROPOUT)
+    hyp_path = root / "run_hyperparams.json"
+    hyp_path.write_text(json.dumps(hyp))
+    base = ["-task", "run", "-project_root", root, "-device", "cuda",
+            "-graph_path", serving / "edge_list.txt",
+            "-shortest_paths_path", serving / "shortest_path_matrix.npy"]
+    results = root / "tensorboard"
+    steps_per_epoch = DATASET_SPLITS["train"] // hp.batch_size
+
+    def counted(what, main, prog, args):
+        kdtw.dtw_distance_grouped.launches = 0
+        E.segment_matmul.launches = 0
+        t0 = time.perf_counter()
+        text = drive(main, prog, args)
+        secs = time.perf_counter() - t0
+        counts = (kdtw.dtw_distance_grouped.launches,
+                  E.segment_matmul.launches)
+        print(f"[run] {what}: {secs:.2f}s, dtw launches {counts[0]}, "
+              f"segment_matmul launches {counts[1]}")
+        return text, counts
+
+    # (a) a 3-epoch run with anchor resampling and top-3 checkpoints
+    text, (dtw_n, seg_n) = counted(
+        "(a) train", train_cli.main, "train",
+        base + ["-hyperparams", hyp_path, "-tb_name", "a",
+                "-checkpoint_k", 3])
+    run_a = results / "a"
+    for name in ("hyperparams.json", "trainer_kwargs.json",
+                 "final_metric_scores.json", "test_results.json"):
+        check((run_a / name).exists(), f"(a) wrote no {name}")
+    events = list((run_a / "tb").glob("events.out.tfevents.*"))
+    check(len(events) == 1 and events[0].stat().st_size > 0,
+          "(a) wrote no TensorBoard event file")
+    check(dtw_n == 2 * 3, f"(a): {dtw_n} DTW launches on a fresh task, "
+                          f"expected 6 (one per split and side)")
+    metas_a = epoch_metas(run_a)
+    check(sorted(metas_a) == list(range(RUN_EPOCHS)),
+          f"(a) checkpoints of epochs {sorted(metas_a)}")
+    steps = metas_a[RUN_EPOCHS - 1]["global_step"]
+    check(steps == RUN_EPOCHS * steps_per_epoch, f"(a): {steps} steps")
+    check(seg_n == 2 * steps, f"(a): {seg_n} segment_matmul launches in "
+                              f"{steps} fit steps, expected {2 * steps}")
+    test_a = json.loads((run_a / "test_results.json").read_text())
+    check(finite_metrics(test_a, "test"), f"(a) test metrics {test_a}")
+    check(json.loads(text.strip().splitlines()[-1])["test"] == test_a,
+          "(a) printed test metrics differ from test_results.json")
+    for e, m in sorted(metas_a.items()):
+        print(f"[run] (a) epoch {e}: train_loss {m['train_loss']!r} "
+              f"val_loss {m['val_loss']!r} val_micro_f1 "
+              f"{m['val_micro_f1']!r} epoch_time_s {m['epoch_time_s']!r} "
+              f"train_edges_per_s {m['train_edges_per_s']!r}")
+    print(f"[run] (a) test: {json.dumps(test_a)}")
+
+    # (b) resume (a) from its epoch-0 checkpoint: epochs 1-2 again
+    _, (dtw_n, seg_n) = counted(
+        "(b) resume", train_cli.main, "train",
+        base + ["-hyperparams", hyp_path, "-tb_name", "b", "-resume",
+                run_a / "checkpoints" / metas_a[0]["file"]])
+    metas_b = epoch_metas(results / "b")
+    check(sorted(metas_b) == list(range(1, RUN_EPOCHS)),
+          f"(b) checkpoints of epochs {sorted(metas_b)}")
+    diffs = [rel_diff(metas_b[e][k], metas_a[e][k]) for e in metas_b
+             for k in ("train_loss", "val_loss")]
+    same = all(metas_b[e][k] == metas_a[e][k] for e in metas_b
+               for k in ("train_loss", "val_loss"))
+    print(f"[run] (b) resumed epochs 1-{RUN_EPOCHS - 1} vs (a): train_loss "
+          f"and val_loss max rel diff {max(diffs)!r} (tol "
+          f"{RESUME_REL_TOL}), bits equal {same}")
+    check(max(diffs) <= RESUME_REL_TOL, "(b) the resumed run left (a)'s "
+                                        "trajectory")
+    check(dtw_n == 0, f"(b): {dtw_n} DTW launches with the cache written")
+    check(seg_n == 2 * (RUN_EPOCHS - 1) * steps_per_epoch,
+          f"(b): {seg_n} segment_matmul launches")
+
+    # (c) -noTrain restore of (a)'s best checkpoint
+    best = max(metas_a.values(), key=lambda m: m["val_micro_f1"])["file"]
+    counted("(c) restore -noTrain", train_cli.main, "train",
+            base + ["-restoreModelPath", run_a, "-restoreModelName",
+                    f"checkpoints/{best}", "-noTrain", "-tb_name", "c"])
+    test_c = json.loads((results / "c" / "test_results.json").read_text())
+    diffs = [rel_diff(test_c[k], test_a[k]) for k in test_a
+             if math.isfinite(test_a[k])]
+    print(f"[run] (c) restored {best}: test metrics vs (a) max rel diff "
+          f"{max(diffs)!r} (tol {RESTORE_REL_TOL}), bits equal "
+          f"{test_c == test_a}")
+    check(set(test_c) == set(test_a) and max(diffs) <= RESTORE_REL_TOL,
+          "(c) the restored checkpoint tests differently from (a)")
+
+    # (d) auto_lr_find, then one epoch
+    lr_path = root / "run_lr_hyperparams.json"
+    lr_path.write_text(json.dumps(dict(hyp, auto_lr_find=True, max_epochs=1,
+                                       resample_anchor_patches=False)))
+    text, (_, seg_n) = counted("(d) auto_lr_find", train_cli.main, "train",
+                               base + ["-hyperparams", lr_path,
+                                       "-tb_name", "d"])
+    line = next(x for x in text.splitlines() if x.startswith("auto_lr_find"))
+    found = float(line.split("->")[1].split()[0])
+    print(f"[run] (d) {line}: found lr {found!r} (range "
+          f"[{1e-6 / 3!r}, {3e-2 / 3!r}])")
+    check(math.isfinite(found) and 1e-6 / 3 <= found <= 3e-2 / 3,
+          f"(d) lr_find found {found!r}")
+    check(seg_n == 2 * steps_per_epoch, f"(d): {seg_n} segment_matmul "
+          f"launches (lr_find's steps carry no plans)")
+
+    # (e) the multi-seed protocol, 2 seeds x 1 epoch
+    exp = root / "experiments"
+    counted("(e) test 2 seeds", test_cli.main, "test",
+            ["-task", "run", "-project_root", root, "-restoreModelPath",
+             run_a, "-n_seeds", 2, "-max_epochs", 1, "-out_dir", exp,
+             "-device", "cuda"])
+    summary = json.loads((exp / "experiment_results.json").read_text())
+    means = {k: v for k, v in summary.items() if k.endswith("_mean")}
+    print(f"[run] (e) experiment_results.json: {json.dumps(means)}")
+    check(summary["seeds"] == [0, 1] and len(means) == 3
+          and all(math.isfinite(v) for v in means.values()),
+          "(e) non-finite means")
+
+    # (f) a 2-trial study from the mini fixture's config, 1 epoch a trial
+    mini = root / "run_mini"
+    shutil.copytree(MINI / "mini", mini / "mini")
+    cfg = load_commented_json(MINI / "mini_config.json")
+    cfg["hyperparams_fix"]["max_epochs"] = 1
+    cfg_path = root / "run_mini_config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    counted("(f) train_config 2 trials", config_cli.main, "train_config",
+            ["-config_path", cfg_path, "-project_root", mini, "-n_trials",
+             2, "-device", "cuda"])
+    trials = json.loads((mini / "tb" / "mini" / "study.json").read_text())[
+        "trials"]
+    print(f"[run] (f) study.json: {len(trials)} trials, values "
+          f"{[t['value'] for t in trials]!r}")
+    check(len(trials) == 2, "(f) the study did not record 2 trials")
+
+    # (g) the mini fixture's run() on the card and on the CPU
+    mhp = HParams.from_dict(load_commented_json(MINI / "mini_config.json")
+                            ["hyperparams_fix"])
+    scores = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pipe = SubGNNPipeline(RunConfig(task="mini", project_root=mini),
+                              mhp, device=where,
+                              results_dir=root / f"run_mini_{where}")
+        pipe.run(log_fn=lambda m, w=where: print(f"[run] (g) {w} {m}"))
+        scores[where] = pipe.trainer.metric_scores
+        print(f"[run] (g) mini run() on {where}: "
+              f"{time.perf_counter() - t0:.2f}s")
+    diffs = [rel_diff(a[k], b[k]) for a, b in zip(scores["cuda"],
+                                                 scores["cpu"])
+             for k in ("train_loss", "val_loss")]
+    print(f"[run] (g) mini run() losses, card vs CPU over "
+          f"{len(scores['cuda'])} epochs: max rel diff {max(diffs)!r} (tol "
+          f"{CPU_GPU_REL_TOL})")
+    check(len(scores["cuda"]) == len(scores["cpu"]) == mhp.max_epochs,
+          "(g) wrong number of epochs")
+    check(max(diffs) <= CPU_GPU_REL_TOL, "(g) card and CPU runs disagree")
+    print(f"[run] phase seconds {time.perf_counter() - t_phase:.2f}")
 
 
 def served_rows_check(pipe, req, res, pads, seed):
@@ -648,7 +896,7 @@ def main(argv=None) -> int:
         check(diff <= CPU_GPU_REL_TOL * scale,
               "GPU serving disagrees with the CPU recompute")
 
-        # ------------------------------------------------------ 4. timings
+        # ---------------------------------------------- 3. serving timings
         for i, res in enumerate(results):
             tag = "cold" if i == 0 else "warm"
             print(f"[timings] request {i} ({tag}): "
@@ -692,7 +940,10 @@ def main(argv=None) -> int:
         # ------------------------------------------------------ 4. dataset
         dataset_phase(root, graph, hp, rng, args.seed)
 
-    # ------------------------------------------------------------ 5. BFS
+        # ---------------------------------------------------------- 5. run
+        run_phase(root, graph, hp, rng, args.seed)
+
+    # ------------------------------------------------------------ 6. BFS
     bfs_phase(hp, args.seed, dev)
 
     dtw_record = {"name": "dtw_grouped", "route": "cuda",
@@ -704,7 +955,7 @@ def main(argv=None) -> int:
                   "bits_equal": req_same, "device_ms": dev_t["device_ms"],
                   "span_ms": dev_t["span_ms"], "call_ms": ms}
 
-    # --------------------------------------------------------- 6. training
+    # --------------------------------------------------------- 7. training
     # 20 bf16 steps at B=1280, timed in runs of 5 (before the CPU recompute
     # below, whose CPU work would share the host with the launching thread)
     model, hp, params, state, batch, anchors = benches["bfloat16"]
@@ -820,7 +1071,7 @@ def main(argv=None) -> int:
           f"checkpoint {best.name} ({ckpt_bytes} bytes); "
           f"{time.perf_counter() - t0:.2f}s")
 
-    # ------------------------------------------------- 7. segment timings
+    # ------------------------------------------------- 8. segment timings
     _, _, params, _, batch, anchors = benches["bfloat16"]
     rows = params["node_embed"].shape[0]
     timed = {}

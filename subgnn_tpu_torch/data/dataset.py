@@ -101,6 +101,17 @@ class SubgraphData:
     def __len__(self) -> int:
         return self.cc_ids.shape[0]
 
+    def subset(self, idx: np.ndarray) -> "SubgraphData":
+        """New SubgraphData restricted to rows `idx` (train-holdout carving
+        for nested model selection; see runner.SubGNNPipeline
+        train_holdout)."""
+        take = (lambda a: None if a is None else a[idx])
+        return SubgraphData(
+            subgraph_ids=self.subgraph_ids[idx], cc_ids=self.cc_ids[idx],
+            labels=self.labels[idx], N_border=take(self.N_border),
+            NP_sim=take(self.NP_sim), I_S_sim=take(self.I_S_sim),
+            B_S_sim=take(self.B_S_sim), multilabel=self.multilabel)
+
     def batches(self, batch_size: int, *, shuffle: bool, drop_last: bool,
                 rng: Optional[np.random.Generator] = None,
                 include_np_sim: bool = True):

@@ -4,8 +4,12 @@ Checkpoints are pickled payloads of numpy trees (subgnn_tpu/train/
 checkpoint.py:18-112): {"params", "state", "opt_state", "meta"}. The port
 writes params and state as numpy trees in the JAX package's layout, so the
 JAX package's loaders and both predict CLIs read a checkpoint the port
-trained; the optimizer state is the port's own (train/loop.py:Adam).
-The port reads checkpoints by copying matching leaves into its own tree.
+trained; the optimizer state is the port's own (train/loop.py:Adam), and
+the port adds the dropout generator's state ("rng_state", a uint8 array)
+so that a resumed run draws the masks the uninterrupted one drew.
+The port reads checkpoints by copying matching leaves into its own tree;
+the optax classes of a JAX-written optimizer state load as plain tuples,
+so its weights restore where optax is not installed.
 Unpickling runs code from the file: load only checkpoints this system wrote.
 """
 from __future__ import annotations
@@ -31,22 +35,39 @@ def to_numpy(tree):
 
 
 def save_checkpoint(path: str | Path, params, state=None, opt_state=None,
-                    meta: Dict[str, Any] | None = None):
+                    meta: Dict[str, Any] | None = None, rng_state=None):
     payload = {
         "params": to_numpy(params),
         "state": to_numpy(state) if state is not None else None,
         "opt_state": to_numpy(opt_state) if opt_state is not None else None,
         "meta": meta or {},
     }
+    if rng_state is not None:
+        payload["rng_state"] = np.asarray(rng_state, np.uint8)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:
         pickle.dump(payload, f)
 
 
+class ForeignState(tuple):
+    """Stands in for an optax state class (a NamedTuple) in a checkpoint
+    the JAX package wrote: its fields, as a tuple."""
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] == "optax":
+            return ForeignState
+        return super().find_class(module, name)
+
+
 def load_checkpoint(path: str | Path):
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()
 
 
 def load_params_filtered(path: str | Path, current_params, payload=None):
@@ -91,7 +112,7 @@ class TopKCheckpoints:
 
     def maybe_save(self, epoch: int, metrics: Dict[str, float],
                    params, state=None, opt_state=None,
-                   global_step: int | None = None) -> bool:
+                   global_step: int | None = None, rng_state=None) -> bool:
         key = float(metrics.get(self.monitor, float("-inf")))
         if np.isnan(key):
             # a NaN monitor must not win best_path (NaN compares False)
@@ -106,7 +127,8 @@ class TopKCheckpoints:
                                    if isinstance(v, (int, float))}}
         if global_step is not None:
             meta["global_step"] = int(global_step)
-        save_checkpoint(path, params, state, opt_state, meta=meta)
+        save_checkpoint(path, params, state, opt_state, meta=meta,
+                        rng_state=rng_state)
         self.kept.append((key, path))
         self.kept.sort(key=lambda t: -t[0])
         while len(self.kept) > self.k:

@@ -11,8 +11,10 @@ trainable leaves (the embedding-table gradient goes through the plan kernel
 of ops/embedding.py when the batch carries plans), and `Adam.step`, which
 updates the leaves in place. Batches are host numpy arrays (the plans and
 compact similarities are built from them) copied to the device per step.
-Not ported yet: the fused-epoch mode, meshes, profiling, `lr_find`,
-`resume_from` and the TensorBoard writer.
+`Trainer.fit` also takes the JAX trainer's per-epoch hooks (TensorBoard
+scalars, `metrics_callback`, `on_epoch_end` anchor resampling) and resumes
+from a checkpoint (`resume_from`); `lr_find` is the LR range test.
+Not ported yet: the fused-epoch mode, meshes, profiling and `debug_mode`.
 """
 from __future__ import annotations
 
@@ -23,14 +25,16 @@ import numpy as np
 import torch
 
 from ..config import HParams
+from ..convert import tree_from_numpy
 from ..device import resolve_device
 from ..models.dropout import KeepMask, generator_keep_mask
 from ..models.subgnn import SubGNNModel
 from ..ops.embedding import GatherPlan
 from . import metrics as M
-from .checkpoint import TopKCheckpoints
+from .checkpoint import TopKCheckpoints, load_checkpoint
 from .plans import PlanBuilder, batch_plans
 from .sims import compact_sims_for_batch
+from .tb_writer import TBWriter
 
 # combined NP-sim bytes (train+val) above which batches carry host-gathered
 # anchor-column similarities (train/sims.py) instead of (B, C, n_nodes) rows
@@ -89,16 +93,33 @@ class Adam:
         return [x for k, v in params.items() if k not in self.frozen
                 for x in tree_leaves(v)]
 
-    def init(self, params) -> Dict[str, Any]:
-        """Zero moments for the trainable leaves; marks those leaves as
-        requiring grad and the frozen ones as not."""
+    def init(self, params, saved=None) -> Dict[str, Any]:
+        """Zero moments for the trainable leaves, or the moments and count
+        of `saved` (the opt_state of a checkpoint this class wrote) on the
+        leaves' devices; marks those leaves as requiring grad and the
+        frozen ones as not."""
         for k, v in params.items():
             for x in tree_leaves(v):
                 x.requires_grad_(k not in self.frozen)
         leaves = self.trainable(params)
-        return {"count": 0,
-                "mu": [torch.zeros_like(x) for x in leaves],
-                "nu": [torch.zeros_like(x) for x in leaves]}
+        if saved is None:
+            return {"count": 0,
+                    "mu": [torch.zeros_like(x) for x in leaves],
+                    "nu": [torch.zeros_like(x) for x in leaves]}
+        if not (isinstance(saved, dict) and set(saved) == {"count", "mu", "nu"}
+                and len(saved["mu"]) == len(saved["nu"]) == len(leaves)):
+            raise ValueError(
+                "the checkpoint's optimizer state is not this Adam's over "
+                "these parameters (a checkpoint written by the JAX package "
+                "holds optax state, which cannot be resumed; restore its "
+                "weights with restore_path / -restoreModelName instead)")
+
+        def put(arrays):
+            return [torch.as_tensor(np.asarray(a), dtype=x.dtype,
+                                    device=x.device)
+                    for a, x in zip(arrays, leaves)]
+        return {"count": int(saved["count"]), "mu": put(saved["mu"]),
+                "nu": put(saved["nu"])}
 
     @torch.no_grad()
     def step(self, params, grads: List[torch.Tensor],
@@ -188,18 +209,25 @@ class Trainer:
                  ckpt_dir: Optional[str] = None,
                  monitor: str = "val_micro_f1", checkpoint_k: int = 3,
                  eval_cc_tables: Optional[Dict[str, Any]] = None,
+                 tb_dir: Optional[str] = None,
                  device: str | torch.device = "cuda"):
+        if hp.debug_mode:
+            raise NotImplementedError(
+                "debug_mode (NaN checks and per-step grad norms) is not "
+                "ported yet")
         self.model = model
         self.hp = hp
         self.device = resolve_device(device)
         self.monitor = monitor
         self.ckpt = (TopKCheckpoints(ckpt_dir, checkpoint_k, monitor)
                      if ckpt_dir else None)
+        self.tb = TBWriter(tb_dir) if tb_dir else None
         self.metric_scores: List[Dict[str, Any]] = []
         self.eval_cc_tables = eval_cc_tables or {}
         self.tx = make_optimizer(hp)
         self.params = self.state = self.opt_state = None
         self.global_step = 0
+        self._resume: Optional[Dict[str, Any]] = None
         # None = by NP-sim size (see fit); set True/False to force
         self.compact_sims: Optional[bool] = None
 
@@ -298,26 +326,66 @@ class Trainer:
 
     # ------------------------------------------------------------------ fit
 
+    def resume_from(self, ckpt_path) -> int:
+        """Restore params/state/opt_state, the step count and the dropout
+        generator's position from a checkpoint at the next fit(); returns
+        the epoch to continue from (subgnn_tpu/train/loop.py:352-359)."""
+        payload = load_checkpoint(ckpt_path)
+        self._resume = payload
+        return int(payload["meta"].get("epoch", -1)) + 1
+
     def fit(self, params, state, train_data, val_data,
             anchors_by_split: Dict[str, Any], seed: int = 0,
-            log_fn: Optional[Callable[[str], None]] = print
+            on_epoch_end: Optional[Callable[[int], Dict[str, Any]]] = None,
+            log_fn: Optional[Callable[[str], None]] = print,
+            start_epoch: int = 0,
+            metrics_callback: Optional[
+                Callable[[int, Dict[str, Any]], None]] = None
             ) -> Dict[str, Any]:
-        """Train for hp.max_epochs, one step per batch, validating after
-        every epoch. Returns the last epoch's metrics; per-epoch metrics are
-        in self.metric_scores. The caller's trees are copied, never
-        updated. Dropout masks come from a torch.Generator seeded with
-        `seed` (different bits from the JAX run's)."""
+        """Train epochs start_epoch .. hp.max_epochs - 1, one step per
+        batch, validating after every epoch. Returns the last epoch's
+        metrics; per-epoch metrics are in self.metric_scores. The caller's
+        trees and anchor dict are copied, never updated. Dropout masks come
+        from a torch.Generator seeded with `seed` (different bits from the
+        JAX run's).
+
+        After each epoch, in the JAX trainer's order (loop.py:636-664): TB
+        scalars, the top-k checkpoint (with the generator's state), the
+        log line, metrics_callback(epoch, metrics) (may raise, e.g.
+        TrialPruned), then on_epoch_end(epoch), whose anchors replace the
+        train/val anchors for the next epoch. After resume_from, the
+        checkpoint's params, state, Adam state, step count and generator
+        state replace the given ones, the epoch-order draws of epochs before
+        start_epoch are skipped, and on_epoch_end(start_epoch - 1) gives the
+        anchors the interrupted run trained start_epoch on (the JAX trainer
+        restarts from the caller's anchors there), so the resumed run
+        continues the uninterrupted trajectory."""
         hp, dev = self.hp, self.device
         self.metric_scores = []
         if self.ckpt:
             self.ckpt.kept = []
-        self.params = copy_tree(params, dev)
-        self.state = copy_tree(state, dev)
-        self.opt_state = self.tx.init(self.params)
-        self.global_step = 0
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        resume, self._resume = self._resume, None
+        if resume is None:
+            self.params = copy_tree(params, dev)
+            self.state = copy_tree(state, dev)
+            self.opt_state = self.tx.init(self.params)
+            self.global_step = 0
+        else:
+            self.params = tree_from_numpy(resume["params"], dev)
+            self.state = tree_from_numpy(resume["state"] or {}, dev)
+            self.opt_state = self.tx.init(self.params, resume["opt_state"])
+            self.global_step = int(resume["meta"].get("global_step", 0))
+            rng_state = resume.get("rng_state")
+            if rng_state is not None:
+                rng_state = torch.as_tensor(np.asarray(rng_state))
+                if rng_state.numel() != generator.get_state().numel():
+                    raise ValueError(
+                        "the checkpoint's dropout generator state was saved "
+                        f"on another device type than {dev.type}")
+                generator.set_state(rng_state)
         builder = PlanBuilder(self.params["node_embed"].shape[0])
-        keep_mask = generator_keep_mask(
-            torch.Generator(device=dev).manual_seed(seed))
+        keep_mask = generator_keep_mask(generator)
         rng_np = np.random.default_rng(seed)
         n = len(train_data)
         drop_last = hp.batch_size <= n
@@ -326,12 +394,19 @@ class Trainer:
                            if d.NP_sim is not None)
             self.compact_sims = np_bytes > COMPACT_NP_SIM_BYTES
         compact = self._use_compact(train_data)
+        # own the dict: resampled anchors never reach the caller's splits
+        anchors_by_split = dict(anchors_by_split)
+        # one epoch-order shuffle per skipped epoch, as the JAX trainer
+        for _ in range(start_epoch):
+            rng_np.shuffle(np.arange(n))
+        if start_epoch > 0 and on_epoch_end is not None:
+            anchors_by_split.update(on_epoch_end(start_epoch - 1) or {})
         train_np = anchors_by_split["train"]
         train_dev = device_batch(train_np, dev)
         edges_per_step = mpn_edges_per_step(hp, hp.batch_size,
                                             train_data.cc_ids.shape[1])
 
-        for epoch in range(hp.max_epochs):
+        for epoch in range(start_epoch, hp.max_epochs):
             t0 = time.time()
             order = self._epoch_order(n, hp.batch_size, rng_np, drop_last)
             train_losses = []
@@ -359,10 +434,13 @@ class Trainer:
             val_metrics["train_edges_per_s"] = (
                 edges_per_step * len(train_losses) / max(train_time, 1e-9))
             self.metric_scores.append(val_metrics)
+            if self.tb:
+                self.tb.add_scalars(val_metrics, epoch)
             if self.ckpt:
                 self.ckpt.maybe_save(epoch, val_metrics, self.params,
                                      self.state, self.opt_state,
-                                     global_step=self.global_step)
+                                     global_step=self.global_step,
+                                     rng_state=generator.get_state().numpy())
             if log_fn:
                 log_fn(f"epoch {epoch}: "
                        f"train_loss={val_metrics['train_loss']:.4f} "
@@ -370,7 +448,78 @@ class Trainer:
                        f"val_acc={val_metrics['val_acc']:.4f} "
                        f"val_auroc={val_metrics['val_auroc']:.4f} "
                        f"({val_metrics['epoch_time_s']:.1f}s)")
+            if metrics_callback is not None:
+                metrics_callback(epoch, val_metrics)  # may raise (pruning)
+            if on_epoch_end is not None:
+                new_anchors = on_epoch_end(epoch)
+                if new_anchors:
+                    anchors_by_split.update(new_anchors)
+                    train_np = anchors_by_split["train"]
+                    train_dev = device_batch(train_np, dev)
         return self.metric_scores[-1] if self.metric_scores else {}
+
+    def lr_find(self, params, state, train_data, anchors_by_split,
+                seed: int = 0, min_lr: float = 1e-6, max_lr: float = 3e-2,
+                num_steps: int = 60, beta: float = 0.9,
+                damping: float = 3.0) -> float:
+        """LR range test (subgnn_tpu/train/loop.py:669-738; PL's
+        auto_lr_find): one-batch Adam steps at lrs swept geometrically from
+        min_lr to max_lr, an EMA of the loss, and the lr at the steepest
+        descent of the smoothed curve divided by `damping`; a non-finite
+        loss ends the sweep. Fewer than 5 points keep hp.learning_rate.
+        Model state stays fixed, the caller's trees are not updated, and
+        the frozen table gets no update (as make_optimizer). The batches
+        carry no gather plans (as the JAX sweep's), so the table gradient
+        is autograd's index backward, not the plan kernel."""
+        hp, dev = self.hp, self.device
+        rng_np = np.random.default_rng(seed)
+        lrs = np.geomspace(min_lr, max_lr, num_steps)
+        anchors = device_batch(anchors_by_split["train"], dev)
+        p = copy_tree(params, dev)
+        st = copy_tree(state, dev)
+        tx = Adam(1e-3, hp.grad_clip, frozen=self.tx.frozen)
+        opt_state = tx.init(p)
+        keep_mask = generator_keep_mask(
+            torch.Generator(device=dev).manual_seed(seed))
+        losses: List[float] = []
+        smoothed = None
+        it = 0
+        drop_last = hp.batch_size <= len(train_data)
+        while it < num_steps:
+            for batch in train_data.batches(hp.batch_size, shuffle=True,
+                                            drop_last=drop_last, rng=rng_np):
+                if it >= num_steps:
+                    break
+                tx.lr = float(np.float32(lrs[it]))
+                loss, _, _, grads = loss_and_grads(
+                    self.model, tx, p, st, device_batch(batch, dev), anchors,
+                    keep_mask)
+                tx.step(p, grads, opt_state)
+                loss = float(loss)
+                if not np.isfinite(loss):
+                    num_steps = it  # diverged: truncate the sweep
+                    break
+                smoothed = loss if smoothed is None else (
+                    beta * smoothed + (1 - beta) * loss)
+                losses.append(smoothed)
+                it += 1
+        if len(losses) < 5:
+            return hp.learning_rate
+        grad = np.gradient(np.asarray(losses))
+        best = int(np.argmin(grad[: len(losses)]))
+        # the steepest-descent point sits just below the divergence edge;
+        # damp it (as the JAX trainer)
+        return float(lrs[min(best, len(lrs) - 1)]) / damping
+
+    def best_monitor_value(self) -> float:
+        """The HPO objective: min over epochs when monitoring val_loss, max
+        otherwise (reference train.py:432-435)."""
+        vals = [m[self.monitor] for m in self.metric_scores
+                if self.monitor in m]
+        if not vals:
+            return float("nan")
+        return float(np.min(vals) if self.monitor == "val_loss"
+                     else np.max(vals))
 
 
 def _host_batch(data, idx: np.ndarray, valid: np.ndarray,

@@ -1,14 +1,14 @@
-"""Dataset pipeline: load -> precompute -> sample_anchors / split_data ->
-build_model -> Trainer.fit, and serving: load -> precompute -> predict.
+"""End-to-end pipeline: load -> precompute -> anchors -> train -> test
+(`run`), and serving: load -> precompute -> predict.
 
-Port of subgnn_tpu/train/runner.py (SubGNNPipeline) without its mesh: the
-same files, caches, RNG streams and request flow, with the model and the
-structure DTW on a torch device and every BFS (the all-pairs matrix,
-serving's rows on a worker thread) in the C++ host library.
-Training runs through train/loop.py:Trainer on `split_data`,
-`sample_anchors` and `eval_cc_tables`; `SubGNNPipeline.run` (a whole
-training run with its JSON artifacts, anchor resampling, lr_find and
-resume) is not ported yet.
+Port of subgnn_tpu/train/runner.py (SubGNNPipeline) without its mesh and
+profiler: the same files, caches, RNG streams, JSON artifacts and request
+flow, with the model and the structure DTW on a torch device and every BFS
+(the all-pairs matrix, serving's rows on a worker thread) in the C++ host
+library. `run` trains through train/loop.py:Trainer on `split_data`,
+`sample_anchors` and `eval_cc_tables`, with the JAX run's train holdout,
+checkpoint restore, lr_find, per-epoch anchor resampling and resume, and
+tests the best checkpoint.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import HParams, RunConfig
+from ..convert import tree_from_numpy
 from ..data.dataset import SubgraphData, initialize_cc_ids, pad_node_lists
 from ..data.graph import CSRGraph
 from ..data.subgraphs import (MultiLabelBinarizer, read_subgraphs,
@@ -44,6 +45,8 @@ from ..sampling.anchors import (init_anchors_neighborhood,
                                 init_anchors_structure)
 from ..sampling.walks import (perform_random_walks,
                               sample_structure_anchor_patches)
+from .checkpoint import dump_json, load_checkpoint, load_params_filtered
+from .loop import Trainer, make_optimizer
 from .sims import compact_sims_for_batch
 
 SPLITS = ("train", "val", "test")
@@ -76,10 +79,21 @@ class SubGNNPipeline:
     BFS_ROW_CACHE_SIZE = 2048
 
     def __init__(self, run_config: RunConfig, hp: HParams,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", *,
+                 results_dir: Optional[str | Path] = None,
+                 checkpoint_k: int = 3,
+                 train_holdout: Optional[np.ndarray] = None):
         self.rc = run_config
         self.hp = hp
         self.device = resolve_device(device)
+        self.results_dir = Path(results_dir) if results_dir else None
+        self.checkpoint_k = checkpoint_k  # 0 disables checkpointing
+        # train-split rows carved out for nested model selection: fit never
+        # sees them; run() scores them with the best-val checkpoint like a
+        # non-train split (out["holdout"])
+        self.train_holdout = (None if train_holdout is None
+                              else np.unique(np.asarray(train_holdout,
+                                                        np.int64)))
         self._loaded = False
         self.structure_anchors = self.int_walks = self.bor_walks = None
         self.precompute_timings: Dict[str, float] = {}
@@ -256,6 +270,18 @@ class SubGNNPipeline:
 
     # --------------------------------------------------------------- anchors
 
+    @staticmethod
+    def _subset_split_anchors(split_anchors: Dict[str, Any],
+                              idx: np.ndarray) -> Dict[str, Any]:
+        """One split's anchor arrays restricted to subgraph rows `idx`:
+        neigh_int/neigh_bor (L, N, C, A) and pos_int (L, N, A) slice their
+        subgraph axis; pos_ext and the structure arrays are split-wide."""
+        out = dict(split_anchors)
+        for k in ("neigh_int", "neigh_bor", "pos_int"):
+            if k in out:
+                out[k] = out[k][:, idx]
+        return out
+
     def sample_anchors(self, seed: Optional[int] = None
                        ) -> Dict[str, Dict[str, np.ndarray]]:
         """Per-split host anchor arrays, the form Trainer.fit / evaluate
@@ -341,6 +367,176 @@ class SubGNNPipeline:
         return {s: {k: torch.as_tensor(v, device=self.device) for k, v in
                     self._cc_tables_from_ids(self.cc_ids[s]).items()}
                 for s in ("val", "test")}
+
+    # ------------------------------------------------------------------- run
+
+    def run(self, seed: Optional[int] = None, log_fn=print,
+            restore_path: Optional[str | Path] = None,
+            resume_path: Optional[str | Path] = None,
+            metrics_callback=None) -> Dict[str, Any]:
+        """Full train + test cycle (subgnn_tpu/train/runner.py:381-546
+        without its mesh and profile_dir). Under results_dir it writes the
+        reference's JSON artifacts (hyperparams.json, trainer_kwargs.json,
+        final_metric_scores.json, test_results.json), TensorBoard scalars
+        (tb/) and the top-k checkpoints (checkpoints/).
+
+        restore_path: filtered load of a checkpoint's weights and model
+        state (the JAX package's or the port's), then train max_epochs from
+        scratch: the reference's -restoreModelName (train.py:264-273).
+        resume_path: continue a run from one of its own checkpoints (params,
+        Adam state, model state, step count and dropout generator) to
+        max_epochs, reproducing the uninterrupted run. Testing uses the
+        best checkpoint's weights and model state. Returns {"val": the last
+        epoch's metrics, "test", "holdout" (None without train_holdout),
+        "best_monitor"}."""
+        hp = self.hp
+        seed = hp.seed if seed is None else seed
+        self.load()
+        self.precompute()
+        anchors = self.sample_anchors(seed)
+        model, params, state = self.build_model(seed)
+        eval_cc = self.eval_cc_tables()
+        train_data = self.split_data("train")
+        val_data = self.split_data("val")
+
+        holdout_idx = keep_idx = holdout_data = None
+        if self.train_holdout is not None:
+            n_train = len(self.subgraphs["train"])
+            H = self.train_holdout
+            if not (len(H) and H.min() >= 0 and H.max() < n_train):
+                raise ValueError(f"train_holdout rows must lie in "
+                                 f"[0, {n_train}), got {H.min()}..{H.max()}")
+            holdout_idx = H
+            keep_idx = np.setdiff1d(np.arange(n_train), H)
+            anchors = dict(anchors)
+            anchors["holdout"] = self._subset_split_anchors(
+                anchors["train"], holdout_idx)
+            anchors["train"] = self._subset_split_anchors(
+                anchors["train"], keep_idx)
+            holdout_data = train_data.subset(holdout_idx)
+            train_data = train_data.subset(keep_idx)
+            if hp.trainable_cc:
+                # the held-out rows are scored like a non-train split, from
+                # PRETRAINED-initialised CC tables; the trainable train
+                # table shrinks to the kept rows
+                keep = torch.as_tensor(keep_idx, device=self.device)
+                params["train_cc"] = {k: v[keep]
+                                      for k, v in params["train_cc"].items()}
+                eval_cc = dict(eval_cc)
+                eval_cc["holdout"] = {
+                    k: torch.as_tensor(v[holdout_idx], device=self.device)
+                    for k, v in self._cc_tables_from_ids(
+                        self.cc_ids["train"]).items()}
+
+        if restore_path:
+            payload = load_checkpoint(restore_path)
+            params = load_params_filtered(restore_path, params,
+                                          payload=payload)
+            # the model state (batch-norm running stats) travels with the
+            # weights it was trained with
+            if payload.get("state") is not None:
+                state = tree_from_numpy(payload["state"], self.device)
+
+        ckpt_dir = (self.results_dir / "checkpoints"
+                    if self.results_dir and self.checkpoint_k > 0 else None)
+        tb_dir = self.results_dir / "tb" if self.results_dir else None
+        trainer = Trainer(model, hp, ckpt_dir=ckpt_dir,
+                          monitor=self.rc.monitor_metric,
+                          checkpoint_k=max(self.checkpoint_k, 1),
+                          eval_cc_tables=eval_cc, tb_dir=tb_dir,
+                          device=self.device)
+        if self.results_dir:
+            dump_json(self.results_dir / "hyperparams.json", hp.to_dict())
+            # the reference's trainer-kwargs sidecar (train_config.py:
+            # 179-183), with the JAX run's keys
+            tkw = {
+                "max_epochs": hp.max_epochs,
+                "gpus": 1 if self.device.type == "cuda" else 0,
+                "num_sanity_val_steps": 0,
+                "progress_bar_refresh_rate":
+                    hp.extras.get("progress_bar_refresh_rate", 5),
+                "gradient_clip_val": hp.grad_clip,
+                "devices": [str(self.device)],
+                "mesh_axes": None,
+                "monitor": self.rc.monitor_metric,
+                "checkpoint_k": self.checkpoint_k,
+            }
+            if hp.auto_lr_find:
+                tkw["auto_lr_find"] = True
+            dump_json(self.results_dir / "trainer_kwargs.json", tkw)
+
+        if hp.auto_lr_find and hp.max_epochs > 0:
+            # the kept train rows (the JAX run sweeps the whole split here,
+            # against anchors and CC tables cut to the kept rows)
+            t0 = time.time()
+            found = trainer.lr_find(params, state, train_data, anchors,
+                                    seed=seed)
+            if log_fn:
+                log_fn(f"auto_lr_find: {hp.learning_rate:.2e} -> "
+                       f"{found:.2e} ({time.time() - t0:.2f}s)")
+            self.hp = hp = hp.replace(learning_rate=found)
+            trainer.hp = hp
+            trainer.tx = make_optimizer(hp)  # rebuilt with the found lr
+
+        on_epoch_end = None
+        if hp.resample_anchor_patches:
+            def on_epoch_end(epoch):  # noqa: F811
+                fresh = self.sample_anchors(seed + 1000 + epoch)
+                if keep_idx is not None:  # keep holdout rows out of fit
+                    fresh["train"] = self._subset_split_anchors(
+                        fresh["train"], keep_idx)
+                return fresh
+
+        start_epoch = 0
+        if resume_path:
+            start_epoch = trainer.resume_from(resume_path)
+            if log_fn:
+                log_fn(f"resuming from {resume_path} at epoch {start_epoch}")
+
+        self.trainer = trainer
+        try:
+            trainer.fit(params, state, train_data, val_data, anchors,
+                        seed=seed, on_epoch_end=on_epoch_end, log_fn=log_fn,
+                        start_epoch=start_epoch,
+                        metrics_callback=metrics_callback)
+        except Exception:
+            # keep what was learned before re-raising (a pruned trial still
+            # writes final_metric_scores, as the reference's pruner)
+            if self.results_dir and trainer.metric_scores:
+                dump_json(self.results_dir / "final_metric_scores.json",
+                          dict(trainer.metric_scores[-1]))
+            raise
+        finally:
+            if trainer.tb:
+                trainer.tb.close()
+
+        if self.results_dir and trainer.metric_scores:
+            dump_json(self.results_dir / "final_metric_scores.json",
+                      dict(trainer.metric_scores[-1]))
+
+        # test with the best checkpoint (reference: train.py:389-409), its
+        # model state too, so batch-norm running stats match its weights
+        if trainer.ckpt and trainer.ckpt.best_path:
+            best = trainer.ckpt.best_path
+            payload = load_checkpoint(best)
+            trainer.params = load_params_filtered(best, trainer.params,
+                                                  payload=payload)
+            if payload.get("state") is not None:
+                trainer.state = tree_from_numpy(payload["state"],
+                                                self.device)
+        test_metrics = trainer.evaluate(self.split_data("test"),
+                                        anchors["test"], "test")
+        holdout_metrics = None
+        if holdout_data is not None:
+            # the same restored best-val checkpoint as test
+            holdout_metrics = trainer.evaluate(holdout_data,
+                                               anchors["holdout"], "holdout")
+        if self.results_dir:
+            dump_json(self.results_dir / "test_results.json", test_metrics)
+        return {"val": (trainer.metric_scores[-1] if trainer.metric_scores
+                        else {}),
+                "test": test_metrics, "holdout": holdout_metrics,
+                "best_monitor": trainer.best_monitor_value()}
 
     # --------------------------------------------------------------- serving
 
@@ -517,11 +713,8 @@ class SubGNNPipeline:
                 if np_sim is not None:
                     tb.update({k: put(v) for k, v in compact_sims_for_batch(
                         np_sim, anchors, hp, idx).items()})
-                banchors = dict(anchors_dev)
                 tidx = put(idx).long()
-                for k in ("neigh_int", "neigh_bor", "pos_int"):
-                    if k in banchors:
-                        banchors[k] = banchors[k][:, tidx]
+                banchors = self._subset_split_anchors(anchors_dev, tidx)
                 bcc = (None if cc_tables is None
                        else {k: v[tidx] for k, v in cc_tables.items()})
                 logits, _ = model(params, state, tb, banchors, cc_tables=bcc)
