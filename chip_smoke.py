@@ -45,7 +45,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 twice a step). Then the repository's mini fixture (a D=8
                 embedding table, off segment_matmul's vector set) through
                 the same path for its config's 3 epochs, against the same run
-                on the CPU (losses rel 1e-3);
+                on the CPU (losses rel 1e-3). Every fit here and below takes
+                Trainer.fit's fused mode where the JAX rules do, its steps
+                CUDA-graph replays, their launches counted per replay;
+  4b. fused   — on phase 4's task and splits, flagship widths, fp32, B=64,
+                2 epochs: the fused fit against the streaming fit, at
+                lin_dropout 0 (per-epoch train/val losses within rel 1e-5,
+                bits equal printed) and 0.1 (equality printed), each with
+                segment_matmul launched twice a step, its captures (at most
+                one a step graph: one train graph a plan shape and one eval
+                graph) and its epoch_time_s and train_edges_per_s printed;
+                then segment_matmul captured alone (train/graphs.py) and
+                called eagerly, captured and replayed, each call with a new
+                g and a new plan in its static buffers, against its plain
+                version at segment_check's tolerance in fp32 and bf16, one
+                launch counted a call;
   5. run      — whole training runs through the port's CLIs, in-process
                 (main() with sys.argv set) on -device cuda, at the flagship
                 widths (lin_dropout 0.1, anchor resampling) on a fresh task
@@ -140,6 +154,8 @@ RUN_DROPOUT = 0.1           # lin_dropout of (a)/(b): the resume must
                             # restore the card's dropout generator
 RESUME_REL_TOL = 1e-4       # (b) vs (a), the same run on one card
 RESTORE_REL_TOL = 1e-5      # (c) vs (a), one checkpoint tested twice
+FUSED_REL_TOL = 1e-5        # fused vs streaming fit, the same steps
+FUSED_DROPOUT = 0.1         # the fused phase's second pair
 
 
 def check(cond, msg):
@@ -356,6 +372,135 @@ def dataset_phase(root: Path, graph, hp, rng, seed: int):
           "mini fixture: wrong number of epochs")
     check(max(diffs) <= CPU_GPU_REL_TOL, "mini fixture: card and CPU "
                                          "training disagree")
+    return pipe
+
+
+def captured_segment_check(E, ids_np, rows, seed):
+    """segment_matmul captured alone (train/graphs.StepGraph: call 1 eager,
+    call 2 captured and replayed, call 3 a replay), each call with a new g
+    and a new plan (new ids of the same shape, one tile count) copied into
+    its static buffers; every result held against segment_matmul_torch
+    with segment_check's tolerance, in fp32 and bf16. Returns (max abs
+    err, launches counted per call)."""
+    import torch
+    from subgnn_tpu_torch.train.graphs import StepGraph
+    dev = torch.device("cuda:0")
+    crng = np.random.default_rng(seed + 5)
+    draws = [ids_np, crng.integers(0, rows, ids_np.shape),
+             crng.permutation(ids_np.reshape(-1)).reshape(ids_np.shape)]
+    tiles = max(E.tiles_needed(d, rows) for d in draws)
+    plans = [E.make_gather_plan(d, rows, tiles).to(dev) for d in draws]
+    worst, counts = 0.0, []
+    for tdt in (torch.float32, torch.bfloat16):
+        gs = [torch.as_tensor(crng.normal(size=(d.size, 128)), device=dev,
+                              dtype=tdt) for d in draws]
+        g = torch.empty_like(gs[0])
+        plan = E.GatherPlan(*(torch.empty_like(t) for t in plans[0][:3]),
+                            rows)
+        out = torch.empty(rows, 128, device=dev, dtype=tdt)
+
+        def step():
+            out.copy_(E.segment_matmul(g, plan, rows))
+
+        graph = StepGraph(step, dev)
+        for d, p, gi in zip(draws, plans, gs):
+            g.copy_(gi)
+            for dst, src in zip(plan[:3], p[:3]):
+                dst.copy_(src)
+            before = E.segment_matmul.launches
+            graph()
+            counts.append(E.segment_matmul.launches - before)
+            ref = E.segment_matmul_torch(gi, p, rows)
+            absum = torch.zeros(rows, 128, device=dev).index_add_(
+                0, torch.as_tensor(d.reshape(-1), device=dev),
+                gi.float().abs())
+            tol = SEG_REL_TOL * absum
+            if tdt == torch.bfloat16:
+                tol = tol + ref.float().abs() * BF16_ULP
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            worst = max(worst, float(err.max()))
+            check(bool((err <= tol).all()), f"captured segment_matmul "
+                  f"disagrees with its plain version ({tdt}, call "
+                  f"{graph.calls})")
+        check(graph.captures == 1 and graph.graph is not None,
+              "captured segment_matmul: no graph was captured")
+    return worst, counts
+
+
+def fused_phase(pipe, seed: int, benches):
+    """Fused-epoch Trainer.fit (each step a CUDA-graph replay) against the
+    streaming one on phase 4's task at the flagship widths, at lin_dropout
+    0 and FUSED_DROPOUT, and segment_matmul captured alone."""
+    from subgnn_tpu_torch.kernel_times import bench_plans
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.loop import Trainer
+
+    class Streaming(Trainer):
+        """Trainer.fit's mode selection sees splits over its 1 GiB bound
+        (as the JAX package's tests force streaming)."""
+        _split_bytes = staticmethod(lambda data: 1 << 40)
+
+    t_phase = time.perf_counter()
+    anchors = pipe.sample_anchors(seed)
+    train, val = pipe.split_data("train"), pipe.split_data("val")
+    runs = {}
+    for rate in (0.0, FUSED_DROPOUT):
+        hp = pipe.hp.replace(max_epochs=2, lin_dropout=rate)
+        for mode, cls in (("fused", Trainer), ("streaming", Streaming)):
+            model, params, state = pipe.build_model(seed)
+            model.hp = hp              # the forward reads the dropout rate
+            trainer = cls(model, hp, eval_cc_tables=pipe.eval_cc_tables(),
+                          device=pipe.device)
+            E.segment_matmul.launches = 0
+            t0 = time.perf_counter()
+            trainer.fit(params, state, train, val, anchors, seed=seed,
+                        log_fn=None)
+            secs = time.perf_counter() - t0
+            launches = E.segment_matmul.launches
+            check(trainer.fused is (mode == "fused"),
+                  f"fused phase: the {mode} run took the other mode")
+            check(launches == 2 * trainer.global_step,
+                  f"fused phase ({mode}, dropout {rate}): {launches} "
+                  f"segment_matmul launches in {trainer.global_step} steps")
+            m = trainer.metric_scores
+            print(f"[fused] {mode} fit, lin_dropout {rate}: {secs:.2f}s, "
+                  f"{trainer.global_step} steps, segment_matmul launches "
+                  f"{launches}, captures {trainer.fused_captures} over "
+                  f"{len(trainer._graphs)} step graphs; epoch_time_s "
+                  f"{[x['epoch_time_s'] for x in m]!r}, train_edges_per_s "
+                  f"{[x['train_edges_per_s'] for x in m]!r}; train_loss "
+                  f"{[x['train_loss'] for x in m]!r}, val_loss "
+                  f"{[x['val_loss'] for x in m]!r}")
+            if mode == "fused":
+                # one train graph a plan shape, one eval graph
+                check(trainer.fused_captures <= len(trainer._graphs)
+                      <= 1 + len(m), f"fused phase: "
+                      f"{trainer.fused_captures} captures of "
+                      f"{len(trainer._graphs)} step graphs")
+            runs[mode, rate] = m
+        pair = [(a[k], b[k]) for a, b in zip(runs["fused", rate],
+                                             runs["streaming", rate])
+                for k in ("train_loss", "val_loss")]
+        worst = max(rel_diff(a, b) for a, b in pair)
+        same = all(a == b for a, b in pair)
+        print(f"[fused] fused vs streaming at lin_dropout {rate}: train and "
+              f"val losses max rel diff {worst!r}, bits equal {same}")
+        if rate == 0.0:
+            check(worst <= FUSED_REL_TOL, f"fused and streaming fits "
+                  f"disagree at lin_dropout 0 ({worst!r} > {FUSED_REL_TOL})")
+    model, _, params, _, batch, anchors_b = benches["bfloat16"]
+    _, ids, _ = next(x for x in bench_plans(batch, anchors_b)
+                     if x[0] == "neigh")
+    err, counts = captured_segment_check(E, ids.cpu().numpy(),
+                                         params["node_embed"].shape[0], seed)
+    print(f"[fused] segment_matmul captured alone at the bf16 neigh ids "
+          f"(eager, captured + replayed, replayed; new g and plan each "
+          f"call; fp32 then bf16): max_abs_err {err!r}, launches counted "
+          f"per call {counts}")
+    check(counts == [1] * 6, f"captured segment_matmul counted {counts}")
+    print(f"[fused] phase seconds {time.perf_counter() - t_phase:.2f}")
+    return err
 
 
 def drive(main, prog, args):
@@ -938,7 +1083,11 @@ def main(argv=None) -> int:
               f"{json.dumps(dev_t['activities'])}")
 
         # ------------------------------------------------------ 4. dataset
-        dataset_phase(root, graph, hp, rng, args.seed)
+        dpipe = dataset_phase(root, graph, hp, rng, args.seed)
+
+        # ------------------------------------------------------ 4b. fused
+        seg_err = max(seg_err, fused_phase(dpipe, args.seed, benches))
+        del dpipe
 
         # ---------------------------------------------------------- 5. run
         run_phase(root, graph, hp, rng, args.seed)

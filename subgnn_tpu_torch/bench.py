@@ -6,12 +6,17 @@
 
 Prints ONE JSON line on stdout:
     {"metric": "mpn_edges_per_s", "value": N, "unit": "edges/s",
-     "run_spread": [...], "dtype": "..."}
-and the card's name and power limit on stderr. `--profile N` then times N
-more steps without the profiler, traces N more with torch.profiler, and
-prints to stderr the wall time per step of both, the device busy time per
-step (from the trace), the device's idle share against each wall time, the
-device activities per step, and the ops with the most device time.
+     "run_spread": [...], "dtype": "...", "step": "cuda_graph"}
+and on stderr the card's name and power limit and the eager step's rate
+beside the graph's. The measured step is the one the fused trainer runs:
+the training step captured once as a CUDA graph (train/graphs.py) and
+replayed, the counterpart of bench.py:129-136's 50 steps in one
+`fori_loop` dispatch. `--profile N` then, for the replayed and for the
+eager step, times N more steps without the profiler, traces N more with
+torch.profiler, and prints to stderr the wall time per step of both, the
+device busy time per step (from the trace), the device's idle share
+against each wall time, the device activities per step, and the ops with
+the most device time.
 
 The metric counts anchor-patch -> CC message edges processed per second by
 the full training step (forward + backward, with the embedding-table
@@ -20,7 +25,7 @@ bench.py: D=128, 2 layers, all three channels, B=1280 in bf16 or B=512 in
 fp32, C=3 CCs of up to 16 nodes, an 8192-node table, a 150-patch structure
 pool, gather plans and compact anchor-column similarities. Each timed run
 is 50 steps between CUDA events after a synchronize; the value is the
-median of 3 runs, after one warm-up run.
+median of 3 runs, after one warm-up run; graph and eager runs alternate.
 
 Also the port's copies of __graft_entry__._build_flagship and
 _build_training_fixture: the same numpy draws in the same order, so the same
@@ -244,7 +249,7 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def profile_steps(step, n: int) -> None:
+def profile_steps(step, n: int, label: str = "step") -> None:
     """Time n calls of `step` unprofiled, then trace n more with
     torch.profiler; print the breakdown to stderr. The idle share against
     the unprofiled wall time is the step's own: the profiler's host cost
@@ -275,8 +280,8 @@ def profile_steps(step, n: int) -> None:
             end = b
     wall_ms = wall / n * 1e3
     busy_ms = busy / n / 1e3
-    print(f"profile: {n} steps unprofiled, wall {plain_ms!r} ms/step; "
-          f"{n} steps traced, wall {wall_ms!r} ms/step, device busy "
+    print(f"profile ({label}): {n} steps unprofiled, wall {plain_ms!r} "
+          f"ms/step; {n} steps traced, wall {wall_ms!r} ms/step, device busy "
           f"{busy_ms!r} ms/step; idle share {1 - busy_ms / plain_ms!r} "
           f"unprofiled, {1 - busy_ms / wall_ms!r} traced; "
           f"{len(kernels) / n!r} device activities (kernels, copies, "
@@ -286,7 +291,22 @@ def profile_steps(step, n: int) -> None:
           file=sys.stderr)
 
 
+def timed_run(step) -> float:
+    """Seconds of STEPS calls of `step` between CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(STEPS):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def main(argv=None) -> int:
+    from .ops import embedding
+    from .train.graphs import StepGraph
     from .train.loop import make_optimizer, mpn_edges_per_step, train_step
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -304,33 +324,39 @@ def main(argv=None) -> int:
     def step():
         train_step(model, tx, params, opt_state, state, batch, anchors)
 
-    def run():
+    graph = StepGraph(step, dev)
+    for fn in (step, graph):                                # warm-up
         for _ in range(STEPS):
-            step()
-
-    run()                                                   # warm-up
-    times = []
+            fn()
+    embedding.segment_matmul.launches = 0
+    graph_s, eager_s = [], []
     for _ in range(RUNS):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
+        graph_s.append(timed_run(graph))
+        eager_s.append(timed_run(step))
+    launches = embedding.segment_matmul.launches
+    if launches != 2 * 2 * STEPS * RUNS:
+        raise RuntimeError(f"segment_matmul launched {launches} times in "
+                           f"{2 * STEPS * RUNS} steps")
     B, C = batch["cc_ids"].shape[:2]
     edges = mpn_edges_per_step(hp, B, C) * STEPS
     print(card(), file=sys.stderr)
+    print(f"eager step: mpn_edges_per_s {edges / float(np.median(eager_s))!r}"
+          f" (runs {[edges / t for t in eager_s]!r}); graph step "
+          f"{edges / float(np.median(graph_s))!r}; ms/step eager "
+          f"{float(np.median(eager_s)) / STEPS * 1e3!r}, graph "
+          f"{float(np.median(graph_s)) / STEPS * 1e3!r}; captures "
+          f"{graph.captures}", file=sys.stderr)
     print(json.dumps({
         "metric": "mpn_edges_per_s",
-        "value": edges / float(np.median(times)),
+        "value": edges / float(np.median(graph_s)),
         "unit": "edges/s",
-        "run_spread": [edges / t for t in times],
+        "run_spread": [edges / t for t in graph_s],
         "dtype": hp.dtype,
+        "step": "cuda_graph",
     }))
     if args.profile:
-        profile_steps(step, args.profile)
+        profile_steps(graph, args.profile, "graph replay")
+        profile_steps(step, args.profile, "eager")
     return 0
 
 

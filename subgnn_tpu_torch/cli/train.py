@@ -10,8 +10,9 @@ Port of subgnn_tpu/cli/train.py with the same flags and output, plus
 reference flows (reference: SubGNN/train.py:47-497): single training run
 with default or restored hyperparameters, checkpoint restore (filtered
 intersection load), optional test-only evaluation, JSON artifact dumps,
-and the in-driver search (-opt_n_trials). -profile_dir and -debug_mode are
-not ported yet: they exit with an error.
+and the in-driver search (-opt_n_trials). -debug_mode trains streaming
+with per-step gradient norms and NaN checks; -profile_dir writes a
+torch.profiler trace of the fit.
 """
 from __future__ import annotations
 
@@ -145,6 +146,8 @@ def run_optuna_search(args, rc: RunConfig):
             hyp["seed"] = args.seed
         if args.subset_data:
             hyp["subset_data"] = True
+        if args.debug_mode:
+            hyp["debug_mode"] = True
         results_dir = (None if args.no_save else study_path /
                        ("version_" + str(_random.randint(0, 10_000_000))))
         pipe = SubGNNPipeline(rc, HParams.from_dict(hyp), device=args.device,
@@ -188,7 +191,7 @@ def main(argv=None):
     parser.add_argument("-subset_data", action="store_true")
     parser.add_argument("-debug_mode", action="store_true",
                         help="NaN checking + per-step grad norms "
-                             "(reference train.py:340-351); not ported yet")
+                             "(reference train.py:340-351)")
     parser.add_argument("-max_epochs", type=int, default=None)
     parser.add_argument("-seed", type=int, default=None)
     parser.add_argument("-monitor_metric", type=str, default="val_micro_f1")
@@ -205,7 +208,7 @@ def main(argv=None):
     parser.add_argument("-profile_dir", type=str, default=None,
                         help="write a profiler trace of training here "
                              "(the reference's AdvancedProfiler analog, "
-                             "train.py:345-351); not ported yet")
+                             "train.py:345-351)")
     # in-driver optuna search (reference train.py:80-83,448-493)
     parser.add_argument("-opt_n_trials", type=int, default=None,
                         help="run an HPO study over the in-driver ranges "
@@ -240,9 +243,6 @@ def main(argv=None):
                         help="torch device (default cuda; 'cpu' must be "
                              "asked for explicitly)")
     args = parser.parse_args(argv)
-    for flag in ("profile_dir", "debug_mode"):
-        if getattr(args, flag):
-            parser.error(f"-{flag} is not ported to subgnn_tpu_torch yet")
     resolve_device(args.device)  # no GPU for "cuda": fail before any work
 
     hyp = default_hyperparams()
@@ -258,6 +258,8 @@ def main(argv=None):
         hyp["seed"] = args.seed
     if args.subset_data:
         hyp["subset_data"] = True
+    if args.debug_mode:
+        hyp["debug_mode"] = True
     if args.noTrain:
         hyp["max_epochs"] = 0
 
@@ -285,7 +287,8 @@ def main(argv=None):
                           results_dir=results_dir,
                           checkpoint_k=(0 if args.no_checkpointing
                                         else args.checkpoint_k))
-    out = pipe.run(restore_path=restore, resume_path=args.resume)
+    out = pipe.run(restore_path=restore, resume_path=args.resume,
+                   profile_dir=args.profile_dir)
     print(json.dumps({"test": out["test"],
                       "best_monitor": out["best_monitor"]}, default=float))
 

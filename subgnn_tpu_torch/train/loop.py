@@ -1,23 +1,40 @@
-"""Training loop: the per-batch step, Adam, evaluation, top-k checkpoints.
+"""Training loop: the step, Adam, evaluation, top-k checkpoints.
 
-Port of subgnn_tpu/train/loop.py in its streaming mode (one step per batch;
-reference runtime: pl.Trainer with Adam, global-norm gradient clipping,
-per-epoch validation, top-3 checkpointing on the monitored metric,
-SubGNN/train_config.py:109-158, SubGNN/SubGNN.py:317-504,1156-1161).
+Port of subgnn_tpu/train/loop.py (reference runtime: pl.Trainer with Adam,
+global-norm gradient clipping, per-epoch validation, top-3 checkpointing on
+the monitored metric, SubGNN/train_config.py:109-158,
+SubGNN/SubGNN.py:317-504,1156-1161), without meshes.
 
 Parameters are the model's explicit tree of tensors (JAX layout). A step
 runs the training forward, the loss, `torch.autograd.grad` over the
 trainable leaves (the embedding-table gradient goes through the plan kernel
 of ops/embedding.py when the batch carries plans), and `Adam.step`, which
-updates the leaves in place. Batches are host numpy arrays (the plans and
-compact similarities are built from them) copied to the device per step.
-`Trainer.fit` also takes the JAX trainer's per-epoch hooks (TensorBoard
-scalars, `metrics_callback`, `on_epoch_end` anchor resampling) and resumes
-from a checkpoint (`resume_from`); `lr_find` is the LR range test.
-Not ported yet: the fused-epoch mode, meshes, profiling and `debug_mode`.
+updates the leaves in place and keeps its step count on the device.
+
+`Trainer.fit` picks one of the JAX trainer's two modes by its rules
+(loop.py:431-462):
+  * fused (the default whenever every batch is full, `debug_mode` is off
+    and the resident splits take under 1 GiB): both splits stay on the
+    device, each step gathers its batch there from an index row, the host
+    builds an epoch's order, stacked gather plans and compact similarities
+    at once and copies them to the device in one go, and each train and
+    eval step is one replay of a CUDA graph (train/graphs.py) fed by
+    device-to-device copies into its static buffers. Losses are read once
+    an epoch; the host prepares epoch e+1 while the device runs epoch e.
+    On the CPU the same path calls the step instead of replaying it;
+  * streaming: one host batch per step, copied to the device, the loss
+    read after each step; `debug_mode` streams, records each step's global
+    gradient norm and raises FloatingPointError on a non-finite loss or
+    gradient.
+`fit` also takes the JAX trainer's per-epoch hooks (TensorBoard scalars,
+`metrics_callback`, `on_epoch_end` anchor resampling), resumes from a
+checkpoint (`resume_from`) and traces itself with torch.profiler into
+`profile_dir`; `lr_find` is the LR range test.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -32,13 +49,17 @@ from ..models.subgnn import SubGNNModel
 from ..ops.embedding import GatherPlan
 from . import metrics as M
 from .checkpoint import TopKCheckpoints, load_checkpoint
-from .plans import PlanBuilder, batch_plans
-from .sims import compact_sims_for_batch
+from .graphs import StepGraph
+from .plans import PlanBuilder, batch_plans, epoch_plans
+from .sims import compact_sims_for_batch, epoch_compact_sims
 from .tb_writer import TBWriter
 
-# combined NP-sim bytes (train+val) above which batches carry host-gathered
-# anchor-column similarities (train/sims.py) instead of (B, C, n_nodes) rows
+# combined NP-sim bytes (train+val) above which streaming batches carry
+# host-gathered anchor-column similarities (train/sims.py) instead of
+# (B, C, n_nodes) rows; the fused mode carries them at every size
 COMPACT_NP_SIM_BYTES = 256 << 20
+# resident bytes of both splits under which fit takes the fused mode
+FUSED_RESIDENT_BYTES = 1 << 30
 
 
 def mpn_edges_per_step(hp: HParams, batch_size: int, max_n_cc: int) -> int:
@@ -81,7 +102,10 @@ class Adam:
 
     Clipping follows optax's formula, g * max/||g|| when ||g|| >= max
     (torch's clip_grad_norm_ adds 1e-6 to the norm); the bias corrections
-    are taken in float32 as optax takes them.
+    are taken in float32 as optax takes them. The step count is an int64
+    tensor on the parameters' device and the corrections are computed
+    there, so a captured step (train/graphs.py) corrects each replay by its
+    own count; `host_state` gives the int count a checkpoint stores.
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
@@ -102,8 +126,12 @@ class Adam:
             for x in tree_leaves(v):
                 x.requires_grad_(k not in self.frozen)
         leaves = self.trainable(params)
+        dev = leaves[0].device if leaves else None
+
+        def count(n):
+            return torch.tensor(n, dtype=torch.int64, device=dev)
         if saved is None:
-            return {"count": 0,
+            return {"count": count(0),
                     "mu": [torch.zeros_like(x) for x in leaves],
                     "nu": [torch.zeros_like(x) for x in leaves]}
         if not (isinstance(saved, dict) and set(saved) == {"count", "mu", "nu"}
@@ -118,8 +146,14 @@ class Adam:
             return [torch.as_tensor(np.asarray(a), dtype=x.dtype,
                                     device=x.device)
                     for a, x in zip(arrays, leaves)]
-        return {"count": int(saved["count"]), "mu": put(saved["mu"]),
+        return {"count": count(int(saved["count"])), "mu": put(saved["mu"]),
                 "nu": put(saved["nu"])}
+
+    @staticmethod
+    def host_state(opt_state: Dict[str, Any]) -> Dict[str, Any]:
+        """opt_state with its count as a Python int (what a checkpoint
+        stores; reading it waits for the device)."""
+        return dict(opt_state, count=int(opt_state["count"]))
 
     @torch.no_grad()
     def step(self, params, grads: List[torch.Tensor],
@@ -128,20 +162,19 @@ class Adam:
         theirs, in `trainable` order (overwritten: clipped in place)."""
         leaves = self.trainable(params)
         if self.grad_clip and self.grad_clip > 0:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = global_norm(grads)
             scale = torch.where(norm < self.grad_clip,
                                 torch.ones_like(norm), self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
         mu, nu = opt_state["mu"], opt_state["nu"]
-        opt_state["count"] += 1
-        count = np.float32(opt_state["count"])
+        opt_state["count"].add_(1)
+        count = opt_state["count"].to(torch.float32)
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
+        bc1 = 1 - torch.pow(self.b1, count)      # float32, on the device
+        bc2 = 1 - torch.pow(self.b2, count)
         mu_hat = torch._foreach_div(mu, bc1)
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
@@ -149,6 +182,11 @@ class Adam:
         upd = torch._foreach_div(mu_hat, denom)
         torch._foreach_mul_(upd, -self.lr)
         torch._foreach_add_(leaves, upd)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of all leaves together."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
 def make_optimizer(hp: HParams) -> Adam:
@@ -211,10 +249,6 @@ class Trainer:
                  eval_cc_tables: Optional[Dict[str, Any]] = None,
                  tb_dir: Optional[str] = None,
                  device: str | torch.device = "cuda"):
-        if hp.debug_mode:
-            raise NotImplementedError(
-                "debug_mode (NaN checks and per-step grad norms) is not "
-                "ported yet")
         self.model = model
         self.hp = hp
         self.device = resolve_device(device)
@@ -228,8 +262,11 @@ class Trainer:
         self.params = self.state = self.opt_state = None
         self.global_step = 0
         self._resume: Optional[Dict[str, Any]] = None
-        # None = by NP-sim size (see fit); set True/False to force
+        # None = chosen by fit (the JAX rules); set True/False to force
         self.compact_sims: Optional[bool] = None
+        self.fused: Optional[bool] = None      # the mode of the last fit
+        self._grad_norms: List[float] = []     # debug_mode, per step
+        self._graphs: List[StepGraph] = []
 
     # ---------------------------------------------------------------- steps
 
@@ -262,6 +299,29 @@ class Trainer:
             take = np.concatenate(
                 [take, np.zeros(n_batches * batch_size - len(take), np.int64)])
         return take.reshape(n_batches, batch_size).astype(np.int32)
+
+    @staticmethod
+    def _split_bytes(data) -> int:
+        """Bytes of a split's arrays that the fused mode keeps resident."""
+        return sum(getattr(data, name).nbytes
+                   for name in ("cc_ids", "NP_sim", "I_S_sim", "B_S_sim")
+                   if getattr(data, name) is not None)
+
+    @staticmethod
+    def _device_split(data, device, include_np_sim: bool) -> Dict[str, Any]:
+        """A whole split's arrays on `device`, once (fused mode)."""
+        return device_batch({
+            "cc_ids": data.cc_ids, "label": data.labels,
+            "NP_sim": data.NP_sim if include_np_sim else None,
+            "I_S_sim": data.I_S_sim, "B_S_sim": data.B_S_sim}, device)
+
+    @staticmethod
+    def _gather_batch(split_arrays, idx, valid) -> Dict[str, Any]:
+        """The batch at index row `idx`, gathered on the device."""
+        batch = {k: v[idx] for k, v in split_arrays.items()}
+        batch["subgraph_idx"] = idx
+        batch["valid"] = valid
+        return batch
 
     # ----------------------------------------------------------------- eval
 
@@ -340,28 +400,64 @@ class Trainer:
             log_fn: Optional[Callable[[str], None]] = print,
             start_epoch: int = 0,
             metrics_callback: Optional[
-                Callable[[int, Dict[str, Any]], None]] = None
-            ) -> Dict[str, Any]:
-        """Train epochs start_epoch .. hp.max_epochs - 1, one step per
-        batch, validating after every epoch. Returns the last epoch's
-        metrics; per-epoch metrics are in self.metric_scores. The caller's
-        trees and anchor dict are copied, never updated. Dropout masks come
-        from a torch.Generator seeded with `seed` (different bits from the
-        JAX run's).
+                Callable[[int, Dict[str, Any]], None]] = None,
+            profile_dir: Optional[str] = None) -> Dict[str, Any]:
+        """Train epochs start_epoch .. hp.max_epochs - 1, validating after
+        every epoch, in the fused or the streaming mode (module docstring;
+        `self.fused` says which, `self.fused_captures` how many step graphs
+        were captured). Returns the last epoch's metrics; per-epoch metrics
+        are in self.metric_scores. The caller's trees and anchor dict are
+        copied, never updated. Dropout masks come from a torch.Generator
+        seeded with `seed` (different bits from the JAX run's); both modes
+        draw the same masks and the same epoch orders.
 
         After each epoch, in the JAX trainer's order (loop.py:636-664): TB
         scalars, the top-k checkpoint (with the generator's state), the
         log line, metrics_callback(epoch, metrics) (may raise, e.g.
         TrialPruned), then on_epoch_end(epoch), whose anchors replace the
-        train/val anchors for the next epoch. After resume_from, the
+        train/val anchors for the next epoch (in the fused mode they are
+        copied into the steps' anchor buffers). After resume_from, the
         checkpoint's params, state, Adam state, step count and generator
         state replace the given ones, the epoch-order draws of epochs before
         start_epoch are skipped, and on_epoch_end(start_epoch - 1) gives the
         anchors the interrupted run trained start_epoch on (the JAX trainer
         restarts from the caller's anchors there), so the resumed run
-        continues the uninterrupted trajectory."""
+        continues the uninterrupted trajectory. `profile_dir`: trace the
+        fit with torch.profiler (CPU, and CUDA on the card) into that
+        directory, in TensorBoard's layout."""
+        with _profiler(profile_dir, self.device):
+            return self._fit(params, state, train_data, val_data,
+                             anchors_by_split, seed, on_epoch_end, log_fn,
+                             start_epoch, metrics_callback)
+
+    def _select_mode(self, train_data, val_data, drop_last: bool):
+        """(fused, compact) by the JAX trainer's rules (loop.py:441-462):
+        fused when every batch is full, debug_mode is off and the resident
+        splits (without the NP sims when compact) take under 1 GiB; compact
+        sims by default whenever fused is possible, else by NP-sim size."""
+        np_bytes = sum(d.NP_sim.nbytes for d in (train_data, val_data)
+                       if d.NP_sim is not None)
+        fused_possible = drop_last and not self.hp.debug_mode
+        auto_compact = self.compact_sims is None
+        if auto_compact:
+            self.compact_sims = (fused_possible
+                                 or np_bytes > COMPACT_NP_SIM_BYTES)
+        compact = self._use_compact(train_data)
+        resident = (self._split_bytes(train_data)
+                    + self._split_bytes(val_data)
+                    - (np_bytes if compact else 0))
+        fused = fused_possible and resident < FUSED_RESIDENT_BYTES
+        if auto_compact and not fused:
+            self.compact_sims = np_bytes > COMPACT_NP_SIM_BYTES
+            compact = self._use_compact(train_data)
+        return fused, compact
+
+    def _fit(self, params, state, train_data, val_data, anchors_by_split,
+             seed, on_epoch_end, log_fn, start_epoch, metrics_callback):
         hp, dev = self.hp, self.device
         self.metric_scores = []
+        self._grad_norms = []
+        self._graphs = []
         if self.ckpt:
             self.ckpt.kept = []
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -389,11 +485,8 @@ class Trainer:
         rng_np = np.random.default_rng(seed)
         n = len(train_data)
         drop_last = hp.batch_size <= n
-        if self.compact_sims is None:
-            np_bytes = sum(d.NP_sim.nbytes for d in (train_data, val_data)
-                           if d.NP_sim is not None)
-            self.compact_sims = np_bytes > COMPACT_NP_SIM_BYTES
-        compact = self._use_compact(train_data)
+        fused, compact = self._select_mode(train_data, val_data, drop_last)
+        self.fused = fused
         # own the dict: resampled anchors never reach the caller's splits
         anchors_by_split = dict(anchors_by_split)
         # one epoch-order shuffle per skipped epoch, as the JAX trainer
@@ -401,46 +494,60 @@ class Trainer:
             rng_np.shuffle(np.arange(n))
         if start_epoch > 0 and on_epoch_end is not None:
             anchors_by_split.update(on_epoch_end(start_epoch - 1) or {})
-        train_np = anchors_by_split["train"]
-        train_dev = device_batch(train_np, dev)
         edges_per_step = mpn_edges_per_step(hp, hp.batch_size,
                                             train_data.cc_ids.shape[1])
+        run = train_dev = pending = None
+        prefetch = False
+        if fused:
+            run = _FusedRun(self, train_data, val_data, anchors_by_split,
+                            compact, generator, builder, rng_np)
+            # plans and sims follow the anchors, so epoch e+1 is prepared
+            # during epoch e only while they stay fixed (JAX: loop.py:548)
+            prefetch = not hp.resample_anchor_patches
+            if prefetch:
+                pending = run.schedule(run.draw_order(),
+                                       anchors_by_split["train"])
+        else:
+            train_dev = device_batch(anchors_by_split["train"], dev)
 
         for epoch in range(start_epoch, hp.max_epochs):
             t0 = time.time()
-            order = self._epoch_order(n, hp.batch_size, rng_np, drop_last)
-            train_losses = []
-            for i, idx in enumerate([] if order is None else order):
-                valid = np.arange(i * hp.batch_size,
-                                  (i + 1) * hp.batch_size) < n
-                batch = _host_batch(train_data, idx, valid,
-                                    include_np_sim=not compact)
-                batch.update(batch_plans(builder, hp, batch["cc_ids"],
-                                         train_np, idx))
-                if compact:
-                    batch.update(compact_sims_for_batch(
-                        train_data.NP_sim, train_np, hp, idx))
-                loss, _ = self.train_step(device_batch(batch, dev),
-                                          train_dev, keep_mask)
-                train_losses.append(float(loss))
-                self.global_step += 1
+            if fused:
+                sched = (pending if pending is not None
+                         else run.schedule(run.draw_order(),
+                                           anchors_by_split["train"]))
+                losses = run.train_epoch(sched)
+                # epoch e+1's host work overlaps epoch e's replays
+                pending = (run.schedule(run.draw_order(),
+                                        anchors_by_split["train"])
+                           if prefetch and epoch + 1 < hp.max_epochs
+                           else None)
+                train_losses = losses.cpu().double().tolist()
+            else:
+                train_losses = self._stream_epoch(
+                    train_data, anchors_by_split["train"], train_dev,
+                    builder, rng_np, drop_last, compact, keep_mask)
             train_time = time.time() - t0
 
-            val_metrics = self.evaluate(val_data, anchors_by_split["val"],
-                                        "val")
+            val_metrics = (run.eval_epoch() if fused else self.evaluate(
+                val_data, anchors_by_split["val"], "val"))
             val_metrics["train_loss"] = float(np.mean(train_losses))
             val_metrics["epoch"] = epoch
             val_metrics["epoch_time_s"] = time.time() - t0
             val_metrics["train_edges_per_s"] = (
                 edges_per_step * len(train_losses) / max(train_time, 1e-9))
+            if hp.debug_mode and self._grad_norms:
+                val_metrics["grad_norm"] = float(np.mean(
+                    self._grad_norms[-max(len(train_losses), 1):]))
             self.metric_scores.append(val_metrics)
             if self.tb:
                 self.tb.add_scalars(val_metrics, epoch)
             if self.ckpt:
-                self.ckpt.maybe_save(epoch, val_metrics, self.params,
-                                     self.state, self.opt_state,
-                                     global_step=self.global_step,
-                                     rng_state=generator.get_state().numpy())
+                self.ckpt.maybe_save(
+                    epoch, val_metrics, self.params, self.state,
+                    self.tx.host_state(self.opt_state),
+                    global_step=self.global_step,
+                    rng_state=generator.get_state().numpy())
             if log_fn:
                 log_fn(f"epoch {epoch}: "
                        f"train_loss={val_metrics['train_loss']:.4f} "
@@ -454,9 +561,68 @@ class Trainer:
                 new_anchors = on_epoch_end(epoch)
                 if new_anchors:
                     anchors_by_split.update(new_anchors)
-                    train_np = anchors_by_split["train"]
-                    train_dev = device_batch(train_np, dev)
+                    if fused:
+                        run.set_anchors(anchors_by_split)
+                        if pending is not None:
+                            # keep the drawn order, rebuild its plans
+                            pending = run.schedule(
+                                pending[0], anchors_by_split["train"])
+                    else:
+                        train_dev = device_batch(
+                            anchors_by_split["train"], dev)
+        if run is not None:
+            run.release()      # the graphs' memory pools
         return self.metric_scores[-1] if self.metric_scores else {}
+
+    @property
+    def fused_captures(self) -> int:
+        """Step graphs the last fit captured (train, eval, and one more
+        train graph each time the plans' tile counts grew); on the CPU,
+        where the card would have captured."""
+        return sum(g.captures for g in self._graphs)
+
+    def _stream_epoch(self, data, anchors_np, anchors_dev, builder, rng_np,
+                      drop_last, compact, keep_mask) -> List[float]:
+        """One streaming epoch: a host batch per step; the step losses."""
+        hp, dev = self.hp, self.device
+        n = len(data)
+        order = self._epoch_order(n, hp.batch_size, rng_np, drop_last)
+        losses = []
+        for i, idx in enumerate([] if order is None else order):
+            valid = np.arange(i * hp.batch_size, (i + 1) * hp.batch_size) < n
+            batch = _host_batch(data, idx, valid, include_np_sim=not compact)
+            batch.update(batch_plans(builder, hp, batch["cc_ids"],
+                                     anchors_np, idx))
+            if compact:
+                batch.update(compact_sims_for_batch(data.NP_sim, anchors_np,
+                                                    hp, idx))
+            batch = device_batch(batch, dev)
+            if hp.debug_mode:
+                loss = self._debug_step(batch, anchors_dev, keep_mask)
+            else:
+                loss, _ = self.train_step(batch, anchors_dev, keep_mask)
+            losses.append(float(loss))
+            self.global_step += 1
+        return losses
+
+    def _debug_step(self, batch, anchors, keep_mask):
+        """A debug_mode step (JAX loop.py:94-97, 116-117): the global L2 norm
+        of the raw gradients is recorded, and a non-finite loss or gradient
+        raises FloatingPointError before the update (the counterpart of
+        jax_debug_nans). The norm covers the trainable leaves (a frozen
+        table gets no gradient here; the JAX norm includes its)."""
+        loss, _, new_state, grads = loss_and_grads(
+            self.model, self.tx, self.params, self.state, batch, anchors,
+            keep_mask)
+        value, norm = float(loss), float(global_norm(grads))
+        if not (math.isfinite(value) and math.isfinite(norm)):
+            raise FloatingPointError(
+                f"debug_mode: non-finite loss {value!r} or gradient norm "
+                f"{norm!r} at step {self.global_step}")
+        self._grad_norms.append(norm)
+        self.tx.step(self.params, grads, self.opt_state)
+        self.state = new_state
+        return loss
 
     def lr_find(self, params, state, train_data, anchors_by_split,
                 seed: int = 0, min_lr: float = 1e-6, max_lr: float = 3e-2,
@@ -532,3 +698,259 @@ def _host_batch(data, idx: np.ndarray, valid: np.ndarray,
         if arr is not None and (name != "NP_sim" or include_np_sim):
             batch[name] = arr[idx]
     return batch
+
+
+def _profiler(profile_dir, device: torch.device):
+    """torch.profiler over a fit, its trace written into `profile_dir`
+    (TensorBoard's layout; the JAX trainer's jax.profiler trace,
+    loop.py:423-424), or nothing without a directory."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(str(profile_dir)))
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a tree of tensors into another of the same structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, list):
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+    else:
+        dst.copy_(src)
+
+
+def _slot(stacked):
+    """A static buffer for one batch of a stacked tensor or GatherPlan."""
+    if isinstance(stacked, GatherPlan):
+        return GatherPlan(*(torch.empty_like(t[0]) for t in stacked[:3]),
+                          stacked.n_rows)
+    return torch.empty_like(stacked[0])
+
+
+def _load(slot, stacked, i: int) -> None:
+    """Copy batch i of a stacked tensor or GatherPlan into its slot."""
+    if isinstance(stacked, GatherPlan):
+        for dst, src in zip(slot[:3], stacked[:3]):
+            dst.copy_(src[i])
+    else:
+        slot.copy_(stacked[i])
+
+
+def _layout(extras) -> tuple:
+    """The static shapes of a step's per-batch inputs."""
+    return tuple(sorted(
+        (k, tuple(tuple(t.shape[1:]) for t in v[:3])
+         if isinstance(v, GatherPlan) else tuple(v.shape[1:]))
+        for k, v in extras.items()))
+
+
+class _FusedRun:
+    """The device side of one fused fit (subgnn_tpu/train/loop.py:178-264,
+    473-504, 548-628): both splits resident, anchors in static buffers,
+    and a train and an eval StepGraph fed by copies into their static
+    buffers."""
+
+    def __init__(self, trainer: "Trainer", train_data, val_data,
+                 anchors_by_split, compact: bool,
+                 generator: torch.Generator, builder: PlanBuilder,
+                 rng_np: np.random.Generator):
+        hp, dev = trainer.hp, trainer.device
+        self.tr, self.hp, self.device = trainer, hp, dev
+        self.train_data, self.val_data = train_data, val_data
+        self.compact, self.builder, self.rng_np = compact, builder, rng_np
+        self.generator = generator
+        self.keep_mask = generator_keep_mask(generator)
+        self.train_arrays = Trainer._device_split(train_data, dev,
+                                                  not compact)
+        self.val_arrays = Trainer._device_split(val_data, dev, not compact)
+        self.anchors = {s: device_batch(anchors_by_split[s], dev)
+                        for s in ("train", "val")}
+        B, n_val = hp.batch_size, len(val_data)
+        nb_val = -(-n_val // B)
+        flat = np.arange(nb_val * B)
+        self.val_order_np = (flat % n_val).reshape(nb_val, B).astype(np.int32)
+        self.val_valid_np = (flat < n_val).reshape(nb_val, B)
+        self.val_order = self._put(self.val_order_np.astype(np.int64))
+        self.val_valid = self._put(self.val_valid_np)
+        self.val_extras = self._val_extras(anchors_by_split["val"])
+        # the eval forward's CC tables (streaming evaluate's fallback to
+        # the train split's learned tables), at fixed addresses
+        self.val_cc = None
+        if hp.trainable_cc:
+            saved = trainer.eval_cc_tables.get("val")
+            self.val_cc = (trainer.params.get("train_cc") if saved is None
+                           else {k: torch.as_tensor(v, device=dev)
+                                 for k, v in saved.items()})
+        self.train_graph = self.eval_graph = None
+        self.train_key = None
+
+    # ------------------------------------------------------------ host side
+
+    def _put(self, x):
+        """A host array or GatherPlan on the device: pinned and copied
+        without waiting on the card."""
+        if isinstance(x, GatherPlan):
+            return GatherPlan(*(self._put(t) for t in x[:3]), x.n_rows)
+        t = torch.as_tensor(x)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def draw_order(self) -> np.ndarray:
+        return Trainer._epoch_order(len(self.train_data), self.hp.batch_size,
+                                    self.rng_np, True)
+
+    def schedule(self, order: np.ndarray, anchors_np):
+        """An epoch's order, stacked gather plans and compact sims (host
+        numpy work), then one copy of each to the device."""
+        extras = epoch_plans(self.builder, self.hp, self.train_data.cc_ids,
+                             anchors_np, order)
+        if self.compact:
+            extras.update(epoch_compact_sims(self.train_data.NP_sim,
+                                             anchors_np, self.hp, order))
+        return (order, self._put(order.astype(np.int64)),
+                {k: self._put(v) for k, v in extras.items()})
+
+    def _val_extras(self, anchors_np):
+        if not self.compact:
+            return {}
+        return {k: self._put(v) for k, v in epoch_compact_sims(
+            self.val_data.NP_sim, anchors_np, self.hp,
+            self.val_order_np).items()}
+
+    def set_anchors(self, anchors_by_split) -> None:
+        """New anchors into the static anchor buffers, which the step
+        graphs read; the val extras follow the val anchors (JAX
+        loop.py:650-660). New anchors keep their shapes (as JAX's
+        resampling keeps them, so that it never recompiles)."""
+        for split in ("train", "val"):
+            new = device_batch(anchors_by_split[split], self.device)
+            old = self.anchors[split]
+            if set(new) != set(old) or any(new[k].shape != old[k].shape
+                                           for k in new):
+                raise ValueError(
+                    f"on_epoch_end's {split} anchors changed shape: "
+                    f"{ {k: tuple(v.shape) for k, v in new.items()} } vs "
+                    f"{ {k: tuple(v.shape) for k, v in old.items()} }")
+            _copy_into(old, new)
+        self.val_extras = self._val_extras(anchors_by_split["val"])
+
+    # ---------------------------------------------------------- the steps
+
+    def _graph(self, fn) -> StepGraph:
+        graph = StepGraph(fn, self.device, (self.generator,))
+        self.tr._graphs.append(graph)
+        return graph
+
+    def _retire(self, name: str) -> None:
+        graph = getattr(self, name)
+        if graph is not None:
+            graph.graph = graph.fn = None
+        setattr(self, name, None)
+
+    def release(self) -> None:
+        """Free the step graphs and their buffers (their counts stay)."""
+        self._retire("train_graph")
+        self._retire("eval_graph")
+
+    def _build_train(self, extras) -> None:
+        tr, dev, B = self.tr, self.device, self.hp.batch_size
+        buf = {"idx": torch.zeros(B, dtype=torch.int64, device=dev),
+               "valid": torch.ones(B, dtype=torch.bool, device=dev),
+               "loss": torch.zeros((), device=dev),
+               "extras": {k: _slot(v) for k, v in extras.items()}}
+
+        def step():
+            batch = Trainer._gather_batch(self.train_arrays, buf["idx"],
+                                          buf["valid"])
+            batch.update(buf["extras"])
+            loss, _, new_state = train_step(
+                tr.model, tr.tx, tr.params, tr.opt_state, tr.state, batch,
+                self.anchors["train"], self.keep_mask)
+            _copy_into(tr.state, new_state)
+            buf["loss"].copy_(loss)
+
+        self._retire("train_graph")
+        self.train_buf, self.train_graph = buf, self._graph(step)
+        self.train_key = _layout(extras)
+
+    def _build_eval(self) -> None:
+        tr, dev, B = self.tr, self.device, self.hp.batch_size
+        buf = {"idx": torch.zeros(B, dtype=torch.int64, device=dev),
+               "valid": torch.zeros(B, dtype=torch.bool, device=dev),
+               "loss": torch.zeros((), device=dev),
+               "logits": torch.zeros(B, tr.model.num_classes, device=dev),
+               "extras": {k: _slot(v) for k, v in self.val_extras.items()}}
+
+        @torch.no_grad()
+        def step():
+            batch = Trainer._gather_batch(self.val_arrays, buf["idx"],
+                                          buf["valid"])
+            batch.update(buf["extras"])
+            logits, _ = tr.model(tr.params, tr.state, batch,
+                                 self.anchors["val"], train=False,
+                                 cc_tables=self.val_cc)
+            buf["loss"].copy_(tr.model.loss_fn(logits, batch["label"],
+                                               batch["valid"]))
+            buf["logits"].copy_(logits)
+
+        self.eval_buf, self.eval_graph = buf, self._graph(step)
+
+    def train_epoch(self, sched) -> torch.Tensor:
+        """Enqueue an epoch: per batch, copies into the train step's static
+        buffers and one call of its graph. Returns the step losses, a
+        device tensor nobody has waited for."""
+        _, order, extras = sched
+        if self.train_graph is None or _layout(extras) != self.train_key:
+            self._build_train(extras)      # the plans' tile counts grew
+        buf, nb = self.train_buf, order.shape[0]
+        losses = torch.empty(nb, device=self.device)
+        for i in range(nb):
+            buf["idx"].copy_(order[i])
+            for k, v in extras.items():
+                _load(buf["extras"][k], v, i)
+            self.train_graph()
+            losses[i].copy_(buf["loss"])
+        self.tr.global_step += nb
+        return losses
+
+    def eval_epoch(self) -> Dict[str, Any]:
+        """The eval step over the val order, logits and losses read once;
+        per-batch accuracy and macro-F1 means as streaming evaluate and
+        the JAX trainer take them (loop.py:598-628)."""
+        if self.eval_graph is None:
+            self._build_eval()
+        buf, nb = self.eval_buf, self.val_order.shape[0]
+        losses = torch.empty(nb, device=self.device)
+        logits = torch.empty((nb,) + tuple(buf["logits"].shape),
+                             device=self.device)
+        for i in range(nb):
+            buf["idx"].copy_(self.val_order[i])
+            buf["valid"].copy_(self.val_valid[i])
+            for k, v in self.val_extras.items():
+                _load(buf["extras"][k], v, i)
+            self.eval_graph()
+            losses[i].copy_(buf["loss"])
+            logits[i].copy_(buf["logits"])
+        v_losses = losses.cpu().double().numpy()
+        v_logits = logits.cpu().numpy()
+        valid, order = self.val_valid_np, self.val_order_np
+        labels = np.asarray(self.val_data.labels)
+        ml = self.tr.model.multilabel
+        accs, f1s = [], []
+        for i in range(nb):
+            lg, lb = v_logits[i][valid[i]], labels[order[i][valid[i]]]
+            accs.append(M.calc_accuracy(lg, lb, ml))
+            f1s.append(M.calc_f1(lg, lb, "macro", ml))
+        flat = valid.reshape(-1)
+        return self.tr._metrics(
+            "val", v_logits.reshape(-1, v_logits.shape[-1])[flat],
+            labels[order.reshape(-1)[flat]], list(v_losses), accs, f1s)

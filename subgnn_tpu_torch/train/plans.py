@@ -6,7 +6,8 @@ SubGNN/SubGNN.py:609-622, anchor_patch_samplers.py:352-364) go through
 ops/embedding.embedding_gather when the batch carries matching plans, so
 the table gradient is the plan-routed kernel instead of a scatter-add.
 Anchor ids and the batch schedule are host-known before the step, so plans
-are built here in numpy and shipped with the batch.
+are built here in numpy and shipped with the batch (stacked per epoch for
+the fused trainer, train/loop.py).
 
 A PlanBuilder remembers the tile count per plan name and only grows it
 (with headroom) when a batch needs more, so same-shaped batches get
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+
+import torch
 
 from ..ops.embedding import GatherPlan, make_gather_plan, tiles_needed
 
@@ -52,6 +55,34 @@ class PlanBuilder:
     def build(self, name: str, ids: np.ndarray) -> GatherPlan:
         return make_gather_plan(ids, self.n_rows,
                                 n_tiles=self._tiles(name, ids))
+
+    def build_stacked(self, name: str, ids_per_batch) -> GatherPlan:
+        """One plan per batch, all with one tile count (the most any batch
+        asks for), stacked along a leading axis: CPU int32 tensors
+        (n_batches, T, W), (n_batches, T, W) and (n_batches, T)."""
+        t = max(self._tiles(name, ids) for ids in ids_per_batch)
+        self.tiles[name] = t
+        plans = [make_gather_plan(ids, self.n_rows, n_tiles=t)
+                 for ids in ids_per_batch]
+        return GatherPlan(torch.stack([p.pos for p in plans]),
+                          torch.stack([p.local for p in plans]),
+                          torch.stack([p.block for p in plans]),
+                          self.n_rows)
+
+
+def epoch_plans(builder: Optional[PlanBuilder], hp, cc_ids: np.ndarray,
+                anchors, order: np.ndarray) -> Dict[str, GatherPlan]:
+    """Stacked plans for every batch of an epoch schedule `order`
+    ((n_batches, B) subgraph indices), keyed as the forward reads them."""
+    if builder is None:
+        return {}
+    cc_np = np.asarray(cc_ids)
+    plans = {"cc_plan": builder.build_stacked(
+        "cc", [cc_np[idx] for idx in order])}
+    if hp.use_neighborhood:
+        plans["neigh_plan"] = builder.build_stacked(
+            "neigh", [neigh_ids_for_batch(anchors, idx) for idx in order])
+    return plans
 
 
 def batch_plans(builder: Optional[PlanBuilder], hp, batch_cc_ids: np.ndarray,

@@ -373,9 +373,10 @@ class SubGNNPipeline:
     def run(self, seed: Optional[int] = None, log_fn=print,
             restore_path: Optional[str | Path] = None,
             resume_path: Optional[str | Path] = None,
+            profile_dir: Optional[str | Path] = None,
             metrics_callback=None) -> Dict[str, Any]:
         """Full train + test cycle (subgnn_tpu/train/runner.py:381-546
-        without its mesh and profile_dir). Under results_dir it writes the
+        without its mesh). Under results_dir it writes the
         reference's JSON artifacts (hyperparams.json, trainer_kwargs.json,
         final_metric_scores.json, test_results.json), TensorBoard scalars
         (tb/) and the top-k checkpoints (checkpoints/).
@@ -385,7 +386,8 @@ class SubGNNPipeline:
         scratch: the reference's -restoreModelName (train.py:264-273).
         resume_path: continue a run from one of its own checkpoints (params,
         Adam state, model state, step count and dropout generator) to
-        max_epochs, reproducing the uninterrupted run. Testing uses the
+        max_epochs, reproducing the uninterrupted run. profile_dir: a
+        torch.profiler trace of the fit (Trainer.fit). Testing uses the
         best checkpoint's weights and model state. Returns {"val": the last
         epoch's metrics, "test", "holdout" (None without train_holdout),
         "best_monitor"}."""
@@ -498,6 +500,8 @@ class SubGNNPipeline:
             trainer.fit(params, state, train_data, val_data, anchors,
                         seed=seed, on_epoch_end=on_epoch_end, log_fn=log_fn,
                         start_epoch=start_epoch,
+                        profile_dir=(str(profile_dir) if profile_dir
+                                     else None),
                         metrics_callback=metrics_callback)
         except Exception:
             # keep what was learned before re-raising (a pruned trial still

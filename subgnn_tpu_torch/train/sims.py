@@ -52,3 +52,14 @@ def compact_sims_for_batch(np_sim: np.ndarray, anchors, hp,
             np_sim[rows, cols, j], np.float32)
 
     return out
+
+
+def epoch_compact_sims(np_sim: np.ndarray, anchors, hp,
+                       order: np.ndarray) -> Dict[str, np.ndarray]:
+    """compact_sims_for_batch for every batch of an epoch schedule `order`
+    ((n_batches, B)), stacked: float32 (n_batches, L, B, C, A) arrays."""
+    per_batch = [compact_sims_for_batch(np_sim, anchors, hp, idx)
+                 for idx in order]
+    if not per_batch:
+        return {}
+    return {k: np.stack([b[k] for b in per_batch]) for k in per_batch[0]}

@@ -271,13 +271,26 @@ def test_train_config_runs_a_study(mini_root, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["-profile_dir", "prof"], ["-debug_mode"]])
-def test_train_cli_refuses_flags_not_ported(mini_root, flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_train_cli.main(["-task", "mini", "-project_root", str(mini_root),
-                          "-device", "cpu"] + flag)
-    assert exc.value.code != 0
-    assert "not ported" in capsys.readouterr().err
-    assert not (mini_root / "tensorboard").exists()
+def test_train_cli_refuses_flags_not_ported(mini_root, flag, tmp_path):
+    """Both flags were refused before the fused-epoch slice; now each runs:
+    -profile_dir writes a torch.profiler trace of the fit, -debug_mode
+    trains streaming and reports the epochs' gradient norms."""
+    hyp = _hyperparams_file(tmp_path, max_epochs=1)
+    if flag[0] == "-profile_dir":
+        flag = ["-profile_dir", str(tmp_path / "prof")]
+    t_train_cli.main(["-task", "mini", "-project_root", str(mini_root),
+                      "-hyperparams", str(hyp), "-device", "cpu",
+                      "-tb_name", "flagged"] + flag)
+    run = mini_root / "tensorboard" / "flagged"
+    final = json.loads((run / "final_metric_scores.json").read_text())
+    assert json.loads((run / "test_results.json").read_text())
+    if flag[0] == "-profile_dir":
+        assert list((tmp_path / "prof").glob("*.pt.trace.json"))
+        assert "grad_norm" not in final
+    else:
+        assert json.loads((run / "hyperparams.json").read_text())[
+            "debug_mode"] is True
+        assert np.isfinite(final["grad_norm"]) and final["grad_norm"] > 0
 
 
 def test_clis_refuse_cuda_without_a_gpu(mini_root, tmp_path, monkeypatch):
@@ -294,10 +307,10 @@ def test_clis_refuse_cuda_without_a_gpu(mini_root, tmp_path, monkeypatch):
         t_train_config.main(["-config_path",
                              str(FIXTURE / "mini_config.json"),
                              "-project_root", str(mini_root)])
-    # and the debug_mode hyperparameter is refused, not ignored
+    # and a Trainer, debug_mode or not
     from subgnn_tpu_torch.config import HParams
     from subgnn_tpu_torch.train.loop import Trainer
-    with pytest.raises(NotImplementedError, match="debug_mode"):
-        Trainer(None, HParams(debug_mode=True), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(None, HParams(debug_mode=True))
     for made in ("tensorboard", "tb", "experiments"):
         assert not (mini_root / made).exists(), made

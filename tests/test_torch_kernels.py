@@ -302,3 +302,45 @@ def test_segment_matmul_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         E.segment_matmul(torch.zeros(100, 128, device=cuda,
                                      dtype=torch.float16), plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_matmul_kernel_captured_and_replayed(cuda, dtype):
+    """The table-gradient kernel inside a CUDA graph (train/graphs.py, as
+    the fused trainer runs it): call 1 eager, call 2 captured and
+    replayed, calls 3-4 replays, each with a new g and a new plan copied
+    into the step's static buffers; every call equals the plain version and
+    adds one to `launches`."""
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.graphs import StepGraph
+    rng = np.random.default_rng(11)
+    n_rows, D, shape = 1000, 128, (64, 3, 45)
+    draws = [rng.integers(0, n_rows, shape) for _ in range(4)]
+    draws[1][rng.random(shape) < 0.4] = 0            # PAD-heavy
+    tiles = max(E.tiles_needed(ids, n_rows) for ids in draws) + 2
+    plans = [E.make_gather_plan(ids, n_rows, tiles).to(cuda)
+             for ids in draws]
+    gs = [torch.as_tensor(rng.normal(size=(ids.size, D)), device=cuda,
+                          dtype=dtype) for ids in draws]
+    g, plan = torch.empty_like(gs[0]), E.GatherPlan(
+        *(torch.empty_like(t) for t in plans[0][:3]), n_rows)
+    out = torch.empty(n_rows + 8, D, device=cuda, dtype=dtype)
+
+    def step():
+        out.copy_(E.segment_matmul(g, plan, n_rows + 8))
+
+    graph = StepGraph(step, cuda)
+    for i, (ids, p, gi) in enumerate(zip(draws, plans, gs)):
+        g.copy_(gi)
+        for dst, src in zip(plan[:3], p[:3]):
+            dst.copy_(src)
+        before = E.segment_matmul.launches
+        graph()
+        assert E.segment_matmul.launches == before + 1
+        ref = E.segment_matmul_torch(gi, p, n_rows + 8)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        assert (err <= _row_tol(gi, ids, n_rows + 8, ref)).all(), i
+    assert graph.captures == 1 and graph.graph is not None
+    assert not any(t.any() for t in E._tickets.values())  # left 0
