@@ -82,6 +82,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 card and on the CPU: per-epoch losses within rel 1e-3. Each
                 step's seconds and launch counts, and the phase's seconds,
                 are printed;
+  5b. prepare — dataset preparation on the card (prepare/node_emb.py, its
+                SpMM both ways on segment_matmul): (a) cli.prepare_dataset
+                in-process, --skip_graph -conv gin -emb_dim 64 -emb_epochs
+                30 -device cuda, on the serving graph (hidden 128, full
+                mode, one-hot 8192 features projected first): its
+                ego_graphs.txt, degree_sequence.txt and
+                shortest_path_matrix.npy equal to the port's CPU write,
+                gin_embeddings.pth an (8192, 64) fp32 tensor equal to the
+                .npy and finite, segment_matmul launched exactly
+                spmm_launches' count (30 x 5 + 2), val_auc > 0.6; (b) GCN
+                at dropout 0.4, 3 full-mode epochs on the card and on the
+                CPU from the same initial parameters and numpy draws:
+                per-epoch losses within rel 1e-4, embeddings within 1e-4 x
+                max|emb|, bits equal printed; (c) a uniform graph at PPI-BP
+                scale (17,080 nodes, 316,951 edges; random projection
+                features): GraphSAINT (GIN, 512 walks of 32, 32 steps) for
+                2 epochs and neighbor mode (GCN, nb_size 10 exact, batch
+                512, 34 steps) for 1, finite, launches exact; (d) a uniform
+                graph at HPO-METAB scale (14,587 nodes, 3,238,174 edges:
+                6.48M directed, 7 SpMM chunks): GCN full mode for 3
+                epochs, finite, launches exact, peak memory printed;
+                segment_matmul timed at its first chunk's plan (D 128 fp32)
+                against its plain version, index_add_ and its bound; (e)
+                the device triangular walks at bench.py's shape (8192
+                nodes, 4096 walks of 24, rw_beta 0.65, 8 rounds): every
+                step an edge, PAD only after PAD,
+                anchor_patch_samples_per_s printed. Seconds per epoch come
+                from host stamps (after a synchronize) at each step's first
+                draw;
   6. BFS      — on seeded graphs of 4096 and 8192 nodes (average degree
                 16): the C++ all-pairs BFS at hp.n_processes threads and at
                 every hardware thread, shortest_path_matrix's device BFS,
@@ -108,8 +137,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 subgnn_tpu_torch/kernel_times.py has the helpers.
 Each path's launch counts are zeroed just before it and read just after:
 the DTW record's launches are the 4 serving requests', segment_matmul's are
-Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset
-and run phases' runs are counted on their own, for their checks); the C++
+Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset,
+run and prepare phases' runs are counted on their own, for their checks;
+the prepare runs' counts are in the record's `prepare_launches`, its time
+at the prepare plan in `prepare_spmm`); the C++
 BFS's calls are counted over serving's precompute and over its requests.
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -156,6 +187,11 @@ RESUME_REL_TOL = 1e-4       # (b) vs (a), the same run on one card
 RESTORE_REL_TOL = 1e-5      # (c) vs (a), one checkpoint tested twice
 FUSED_REL_TOL = 1e-5        # fused vs streaming fit, the same steps
 FUSED_DROPOUT = 0.1         # the fused phase's second pair
+PREP_EPOCHS = 30            # prepare (a): the CLI's full-mode GIN epochs
+PREP_CPU_EPOCHS = 3         # prepare (b): card vs CPU
+PREP_REL_TOL = 1e-4         # (b): float32 sums in another order
+PPI_BP = (17080, 316951)    # prepare (c): nodes, undirected edges
+HPO_METAB = (14587, 3238174)  # prepare (d): 6.48M directed edges
 
 
 def check(cond, msg):
@@ -503,7 +539,7 @@ def fused_phase(pipe, seed: int, benches):
     return err
 
 
-def drive(main, prog, args):
+def drive(main, prog, args, tag="run"):
     """Run a CLI's main() in this process with sys.argv set (so that the
     launch counters can be read after it); echo its standard output with a
     prefix and return it."""
@@ -516,7 +552,7 @@ def drive(main, prog, args):
     finally:
         sys.argv = saved
         for line in buf.getvalue().splitlines():
-            print(f"[run] {prog}: {line}")
+            print(f"[{tag}] {prog}: {line}")
     return buf.getvalue()
 
 
@@ -720,6 +756,314 @@ def run_phase(root: Path, graph, hp, rng, seed: int):
           "(g) wrong number of epochs")
     check(max(diffs) <= CPU_GPU_REL_TOL, "(g) card and CPU runs disagree")
     print(f"[run] phase seconds {time.perf_counter() - t_phase:.2f}")
+
+
+def uniform_graph(rng, n, m):
+    """A CSRGraph on nodes 1..n with m distinct undirected edges drawn
+    uniformly (no self loops)."""
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    keys = np.empty(0, np.int64)
+    while len(keys) < m:
+        u, v = rng.integers(0, n, (2, int((m - len(keys)) * 1.1) + 1000))
+        lo, hi = np.minimum(u, v), np.maximum(u, v)
+        keys = np.union1d(keys, (lo * n + hi)[lo < hi])
+    keys = rng.permutation(keys)[:m]
+    return CSRGraph.from_edges(np.stack([keys // n, keys % n], 1) + 1,
+                               n_nodes=n)
+
+
+def timed_draws(gen):
+    """The trainer's own Draws, stamping the host clock (after a
+    synchronize) at each step's negatives, the first draw of a step: the
+    stamps' differences are step times."""
+    import torch
+    from subgnn_tpu_torch.prepare.node_emb import Draws
+
+    class Timed(Draws):
+        def __init__(self, generator):
+            super().__init__(generator)
+            self.stamps = []
+
+        def negatives(self, high, count):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            return super().negatives(high, count)
+
+    return Timed(gen)
+
+
+def step_seconds(draws):
+    """Median seconds between consecutive steps (the first step, which
+    pays for set-up, left out) and the first step's."""
+    d = np.diff(draws.stamps)
+    return (float(np.median(d[1:])) if len(d) > 1 else float("nan"),
+            float(d[0]) if len(d) else float("nan"))
+
+
+def prepare_phase(root: Path, seed: int, dev, gpu: str):
+    """Phase 5b: dataset preparation on the card (see the module doc)."""
+    import ast
+    import shutil
+
+    import torch
+    from subgnn_tpu_torch.bench import device_sampler, profile_steps
+    from subgnn_tpu_torch.cli import prepare_dataset as prep_cli
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.prepare import node_emb as NE
+
+    t_phase = time.perf_counter()
+    prng = np.random.default_rng(seed + 5)
+    records = {}
+
+    # (a) the CLI at the reference's widths on the serving graph: hidden 128
+    # (the CLI's), emb_dim 64, 30 full-mode GIN epochs, one-hot 8192 features
+    # projected first
+    task, cpu_task = root / "prepare", root / "prepare_cpu"
+    for d in (task, cpu_task):
+        d.mkdir()
+        for f in ("edge_list.txt", "subgraphs.pth"):
+            shutil.copy(root / "synthetic" / f, d / f)
+    graph = CSRGraph.from_edgelist(task / "edge_list.txt")
+    src, dst = NE._directed_edges(graph)
+    n_tr = 8 * int((src < dst).sum()) // 10
+    want = NE.spmm_launches(len(src), n_tr, conv_type="gin",
+                            minibatch="full", projected=True)
+    timing = {}
+
+    def timed_train(*a, **k):
+        draws = timed_draws(torch.Generator(device=dev).manual_seed(seed))
+        t0 = time.perf_counter()
+        out = NE.train_node_embeddings(*a, draws=draws, **k)
+        timing.update(total=time.perf_counter() - t0,
+                      steps=step_seconds(draws))
+        return out
+
+    prep_cli.train_node_embeddings = timed_train
+    E.segment_matmul.launches = 0
+    t0 = time.perf_counter()
+    try:
+        text = drive(prep_cli.main, "prepare_dataset",
+                     ["-out", task, "--skip_graph", "-conv", "gin",
+                      "-emb_dim", 64, "-emb_epochs", PREP_EPOCHS, "-seed",
+                      seed, "-device", dev.type], tag="prepare")
+    finally:
+        prep_cli.train_node_embeddings = NE.train_node_embeddings
+    cli_s = time.perf_counter() - t0
+    launches = E.segment_matmul.launches
+    metrics = ast.literal_eval(text.split("node embeddings: ", 1)[1]
+                               .splitlines()[0])
+    prep_cli.prepare(str(cpu_task), generate_graph=False, generate_emb=False,
+                     device="cpu", log_fn=None)
+    for f in ("ego_graphs.txt", "degree_sequence.txt",
+              "shortest_path_matrix.npy"):
+        check((task / f).read_bytes() == (cpu_task / f).read_bytes(),
+              f"(a) {f} differs from the port's CPU write")
+    emb = torch.load(task / "gin_embeddings.pth")
+    check(emb.dtype == torch.float32 and tuple(emb.shape) == (N_NODES, 64),
+          f"(a) gin_embeddings.pth is {emb.dtype} {tuple(emb.shape)}")
+    check(np.array_equal(emb.numpy(), np.load(task / "gin_embeddings.npy")),
+          "(a) the .pth and .npy embeddings differ")
+    check(bool(torch.isfinite(emb).all()), "(a) non-finite embeddings")
+    expect = PREP_EPOCHS * want["step"] + want["eval"]
+    check(launches == expect, f"(a) segment_matmul launched {launches} "
+          f"times, expected {PREP_EPOCHS} x {want['step']} + {want['eval']}")
+    step_s, first_s = timing["steps"]
+    print(f"[prepare] (a) cli.prepare_dataset -conv gin -emb_dim 64 "
+          f"-emb_epochs {PREP_EPOCHS} on {graph.n_nodes} nodes / {len(src)} "
+          f"directed edges: val_auc {metrics['val_auc']!r}, val_acc "
+          f"{metrics['val_acc']!r}, final_loss {metrics['final_loss']!r}; "
+          f"seconds per epoch {step_s!r} (median, warm; first {first_s!r}), "
+          f"train_node_embeddings {timing['total']!r}s, CLI {cli_s!r}s; "
+          f"segment_matmul launches {launches} = {PREP_EPOCHS} x "
+          f"{want['step']} a step + {want['eval']} eval; metric files equal "
+          f"to the CPU's ({gpu})")
+    check(metrics["val_auc"] > 0.6, f"(a) val_auc {metrics['val_auc']!r}")
+    records["cli_gin_full"] = dict(seconds_per_epoch=step_s,
+                                   val_auc=metrics["val_auc"],
+                                   launches=launches)
+
+    # (b) card against CPU: GCN, dropout 0.4, 3 full-mode epochs, numpy
+    # draws from the seed and the same initial parameters
+    n = graph.n_nodes
+    drng = np.random.default_rng(seed + 6)
+    init = NE.init_gnn_params(torch.Generator().manual_seed(seed), n, 128, 64)
+    n_neg = max(n_tr // 4, 1)
+    negs = [drng.integers(0, n, (2, n_neg)) for _ in range(PREP_CPU_EPOCHS)]
+    keeps = [drng.random((n, 128)) >= 0.4 for _ in range(PREP_CPU_EPOCHS)]
+    runs = {}
+    for where in (dev.type, "cpu"):
+        draws = NE.ReplayDraws(where, negatives=negs, keep=keeps)
+        t0 = time.perf_counter()
+        runs[where] = NE.train_node_embeddings(
+            graph, conv_type="gcn", dropout=0.4, epochs=PREP_CPU_EPOCHS,
+            seed=seed, device=where, params=init, draws=draws)
+        print(f"[prepare] (b) {PREP_CPU_EPOCHS} GCN epochs on {where}: "
+              f"{time.perf_counter() - t0:.2f}s")
+    (emb_g, m_g), (emb_c, m_c) = runs[dev.type], runs["cpu"]
+    loss_rel = max(rel_diff(a, b) for a, b in zip(m_g["loss_history"],
+                                                  m_c["loss_history"]))
+    emb_err = float(np.abs(emb_g - emb_c).max())
+    scale = float(np.abs(emb_c).max())
+    print(f"[prepare] (b) card vs CPU: per-epoch losses {m_g['loss_history']!r}"
+          f" vs {m_c['loss_history']!r}, max rel diff {loss_rel!r} (tol "
+          f"{PREP_REL_TOL}); embeddings max |diff| {emb_err!r} (max |emb| "
+          f"{scale!r}, tol {PREP_REL_TOL} x that); bits equal "
+          f"{bool(np.array_equal(emb_g, emb_c))}")
+    check(loss_rel <= PREP_REL_TOL, "(b) card and CPU losses disagree")
+    check(emb_err <= PREP_REL_TOL * scale,
+          "(b) card and CPU embeddings disagree")
+
+    # (c) the minibatch modes at PPI-BP scale, random projection features
+    t0 = time.perf_counter()
+    ppi = uniform_graph(prng, *PPI_BP)
+    src, dst = NE._directed_edges(ppi)
+    n_tr = 8 * int((src < dst).sum()) // 10
+    print(f"[prepare] (c) PPI-BP-scale graph: {ppi.n_nodes} nodes, "
+          f"{len(src) // 2} edges ({time.perf_counter() - t0:.2f}s)")
+    for name, kw, epochs, steps in (
+            ("graphsaint", dict(conv_type="gin", minibatch="graphsaint",
+                                batch_size=512, walk_length=32,
+                                num_steps=32), 2, 32),
+            ("neighbor", dict(conv_type="gcn", minibatch="neighbor",
+                              batch_size=512, nb_size=10, nb_exact=True),
+             1, -(-ppi.n_nodes // 512))):
+        want = NE.spmm_launches(len(src), n_tr, conv_type=kw["conv_type"],
+                                minibatch=name, projected=True)
+        draws = timed_draws(torch.Generator(device=dev).manual_seed(seed))
+        E.segment_matmul.launches = 0
+        t0 = time.perf_counter()
+        emb, m = NE.train_node_embeddings(ppi, epochs=epochs, seed=seed,
+                                          device=dev, draws=draws, **kw)
+        total = time.perf_counter() - t0
+        launches = E.segment_matmul.launches
+        step_s, first_s = step_seconds(draws)
+        expect = epochs * steps * want["step"] + want["eval"]
+        print(f"[prepare] (c) {name} ({kw['conv_type']}), {epochs} epoch(s) "
+              f"x {steps} steps: losses {m['loss_history']!r}, val_auc "
+              f"{m['val_auc']!r}; seconds per epoch {step_s * steps!r} "
+              f"(median step {step_s!r}, first {first_s!r}), "
+              f"train_node_embeddings {total!r}s; segment_matmul launches "
+              f"{launches} = {epochs * steps} x {want['step']} + "
+              f"{want['eval']} ({gpu})")
+        check(np.isfinite(m["loss_history"]).all() and np.isfinite(emb).all(),
+              f"(c) {name}: non-finite losses or embeddings")
+        check(launches == expect, f"(c) {name}: {launches} segment_matmul "
+                                  f"launches, expected {expect}")
+        records[name] = dict(seconds_per_epoch=step_s * steps,
+                             launches=launches)
+    # where a neighbor-mode epoch's time goes (plans, table and eval
+    # included)
+    profile_steps(lambda: NE.train_node_embeddings(
+        ppi, epochs=1, seed=seed, device=dev, **kw), 1,
+        "(c) neighbor, 1 epoch", file=sys.stdout,
+        sort_by=("self_device_time_total", "self_cpu_time_total"))
+    del ppi
+
+    # (d) the chunked SpMM at HPO-METAB scale: GCN, full mode, 3 epochs
+    t0 = time.perf_counter()
+    metab = uniform_graph(prng, *HPO_METAB)
+    gen_s = time.perf_counter() - t0
+    src, dst = NE._directed_edges(metab)
+    n_tr = 8 * int((src < dst).sum()) // 10
+    want = NE.spmm_launches(len(src), n_tr, conv_type="gcn",
+                            minibatch="full", projected=True)
+    print(f"[prepare] (d) HPO-METAB-scale graph: {metab.n_nodes} nodes, "
+          f"{len(src)} directed edges ({-(-len(src) // NE.EDGE_CHUNK)} "
+          f"chunks of <= {NE.EDGE_CHUNK}) (drawn and built in {gen_s:.2f}s;"
+          f" {time.perf_counter() - t0:.2f}s in all)")
+    check(len(src) > NE.EDGE_CHUNK, "(d) the graph fits one chunk")
+    draws = timed_draws(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.reset_peak_memory_stats()
+    E.segment_matmul.launches = 0
+    t0 = time.perf_counter()
+    emb, m = NE.train_node_embeddings(metab, conv_type="gcn", epochs=3,
+                                      seed=seed, device=dev, draws=draws)
+    total = time.perf_counter() - t0
+    launches = E.segment_matmul.launches
+    peak = torch.cuda.max_memory_allocated()
+    step_s, first_s = step_seconds(draws)
+    expect = 3 * want["step"] + want["eval"]
+    print(f"[prepare] (d) 3 GCN full epochs: losses {m['loss_history']!r}, "
+          f"val_auc {m['val_auc']!r}; seconds per epoch {step_s!r} (first "
+          f"{first_s!r}), train_node_embeddings {total!r}s; peak device "
+          f"memory {peak} bytes; segment_matmul launches {launches} = 3 x "
+          f"{want['step']} + {want['eval']} ({gpu})")
+    check(np.isfinite(m["loss_history"]).all() and np.isfinite(emb).all(),
+          "(d) non-finite losses or embeddings")
+    check(launches == expect, f"(d) {launches} segment_matmul launches, "
+                              f"expected {expect}")
+    records["chunked_gcn_full"] = dict(seconds_per_epoch=step_s,
+                                       launches=launches, peak_bytes=peak)
+    profile_steps(lambda: NE.train_node_embeddings(
+        metab, conv_type="gcn", epochs=1, seed=seed, device=dev), 1,
+        "(d) GCN full, 1 epoch", file=sys.stdout)
+
+    # segment_matmul at the phase's largest plan: (d)'s first edge chunk by
+    # dst (the SpMM's forward sum), D = hidden 128, fp32
+    edges = NE.EdgePlans(src[:NE.EDGE_CHUNK], dst[:NE.EDGE_CHUNK],
+                         metab.n_nodes, dev, None)
+    c = edges.chunks[0]
+    g = torch.randn(c.hi - c.lo, 128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    err, ok = segment_check(E, g, c.dst, c.plan_dst, metab.n_nodes)
+    check(ok, "segment_matmul disagrees at the prepare plan")
+    records["spmm"] = spmm_timing(E, g, c.dst, c.plan_dst, metab.n_nodes)
+    records["spmm"]["max_abs_err"] = err
+    print(f"[prepare] segment_matmul at (d)'s edge chunk by dst ("
+          f"{plan_stats(c.dst, c.plan_dst)}, D=128 fp32): "
+          f"{json.dumps(records['spmm'])} ({gpu})")
+    del metab, edges, g
+
+    # (e) the device walks at bench.py's shape
+    rate, wg, walks = device_sampler(dev)
+    w = walks.cpu().numpy().astype(np.int64)
+    pairs = (w[:, :-1] != 0) & (w[:, 1:] != 0)
+    a, b = w[:, :-1][pairs], w[:, 1:][pairs]
+    src_w = np.repeat(np.arange(wg.n_nodes + 1), np.diff(wg.indptr)[
+        :wg.n_nodes + 1])
+    keys = np.sort(src_w * (wg.n_nodes + 1) + wg.indices)
+    edge_ok = bool(np.isin(a * (wg.n_nodes + 1) + b, keys).all())
+    pad_ok = bool(((w[:, :-1] != 0) | (w[:, 1:] == 0)).all())
+    print(f"[prepare] (e) triangular_walks_device {tuple(w.shape)} on "
+          f"{wg.n_nodes} nodes: anchor_patch_samples_per_s {rate!r}; every "
+          f"step an edge {edge_ok}, PAD only after PAD {pad_ok} ({gpu})")
+    check(edge_ok and pad_ok, "(e) device walks break an invariant")
+    records["anchor_patch_samples_per_s"] = rate
+    print(f"[prepare] phase seconds {time.perf_counter() - t_phase:.2f}")
+    return records
+
+
+def spmm_timing(E, g, ids, plan, rows):
+    """The kernel's call and device time at (g, plan) against its plain
+    version and index_add_, with its bound."""
+    import torch
+    from subgnn_tpu_torch.kernel_times import (PEAK_FP32_FLOPS, device_times,
+                                               event_ms, segment_bound_ms)
+    D = g.shape[1]
+
+    def kernel():
+        E.segment_matmul(g, plan, rows)
+
+    def plain():
+        E.segment_matmul_torch(g, plan, rows)
+
+    def library():
+        torch.zeros(rows, D, dtype=torch.float32, device=g.device).index_add_(
+            0, ids, g)
+
+    p1, k1, l1 = event_ms(plain, 3), event_ms(kernel, 20), event_ms(library,
+                                                                      20)
+    k_dev, l_dev = device_times(kernel), device_times(library)
+    l2, k2, p2 = event_ms(library, 20), event_ms(kernel, 20), event_ms(plain,
+                                                                       3)
+    bound = segment_bound_ms(g, plan, rows)
+    ops_ms = int((plan.local < E.TABLE_BLOCK).sum()) * D / PEAK_FP32_FLOPS * 1e3
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=min(l1, l2),
+                device_ms=k_dev["device_ms"], span_ms=k_dev["span_ms"],
+                library_device_ms=l_dev["device_ms"],
+                bound_ms=max(bound, ops_ms),
+                bound_by="operations" if ops_ms > bound else "bytes")
 
 
 def served_rows_check(pipe, req, res, pads, seed):
@@ -1092,6 +1436,9 @@ def main(argv=None) -> int:
         # ---------------------------------------------------------- 5. run
         run_phase(root, graph, hp, rng, args.seed)
 
+        # ----------------------------------------------------- 5b. prepare
+        prepare = prepare_phase(root, args.seed, dev, card())
+
     # ------------------------------------------------------------ 6. BFS
     bfs_phase(hp, args.seed, dev)
 
@@ -1276,8 +1623,14 @@ def main(argv=None) -> int:
     seg_record = {"name": "segment_matmul", "route": "cuda",
                   "source": "subgnn_tpu_torch/csrc/segment_matmul.cu",
                   "replaces": "subgnn_tpu/ops/embedding.py:162",
-                  "launches": fit_launches, "max_abs_err": seg_err,
-                  **timed["neigh"]}
+                  "launches": fit_launches,
+                  "max_abs_err": max(seg_err, prepare["spmm"]["max_abs_err"]),
+                  **timed["neigh"],
+                  "prepare_launches": {k: v["launches"]
+                                       for k, v in prepare.items()
+                                       if isinstance(v, dict)
+                                       and "launches" in v},
+                  "prepare_spmm": prepare["spmm"]}
 
     print(card())
     for record in (dtw_record, seg_record):

@@ -6,7 +6,8 @@
 
 Prints ONE JSON line on stdout:
     {"metric": "mpn_edges_per_s", "value": N, "unit": "edges/s",
-     "run_spread": [...], "dtype": "...", "step": "cuda_graph"}
+     "run_spread": [...], "dtype": "...", "step": "cuda_graph",
+     "anchor_patch_samples_per_s": M}
 and on stderr the card's name and power limit and the eager step's rate
 beside the graph's. The measured step is the one the fused trainer runs:
 the training step captured once as a CUDA graph (train/graphs.py) and
@@ -26,6 +27,10 @@ fp32, C=3 CCs of up to 16 nodes, an 8192-node table, a 150-patch structure
 pool, gather plans and compact anchor-column similarities. Each timed run
 is 50 steps between CUDA events after a synchronize; the value is the
 median of 3 runs, after one warm-up run; graph and eager runs alternate.
+
+`anchor_patch_samples_per_s` is the device triangular-walk sampler's rate
+at bench.py:174-211's shape (`device_sampler`: 8192 nodes, 4096 walks of
+24, rw_beta 0.65, 8 rounds; warm-up untimed).
 
 Also the port's copies of __graft_entry__._build_flagship and
 _build_training_fixture: the same numpy draws in the same order, so the same
@@ -249,11 +254,14 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def profile_steps(step, n: int, label: str = "step") -> None:
+def profile_steps(step, n: int, label: str = "step", file=None,
+                  sort_by=("self_device_time_total",)) -> None:
     """Time n calls of `step` unprofiled, then trace n more with
-    torch.profiler; print the breakdown to stderr. The idle share against
-    the unprofiled wall time is the step's own: the profiler's host cost
-    stretches only the traced steps, not the device work."""
+    torch.profiler; print the breakdown to `file` (default stderr), one op
+    table per key of `sort_by`. The idle share against the unprofiled wall
+    time is the step's own: the profiler's host cost stretches only the
+    traced steps, not the device work."""
+    file = sys.stderr if file is None else file
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -285,10 +293,10 @@ def profile_steps(step, n: int, label: str = "step") -> None:
           f"{busy_ms!r} ms/step; idle share {1 - busy_ms / plain_ms!r} "
           f"unprofiled, {1 - busy_ms / wall_ms!r} traced; "
           f"{len(kernels) / n!r} device activities (kernels, copies, "
-          f"memsets) per step", file=sys.stderr)
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=15, max_name_column_width=60),
-          file=sys.stderr)
+          f"memsets) per step", file=file)
+    for key in sort_by:
+        print(prof.key_averages().table(sort_by=key, row_limit=15,
+                                        max_name_column_width=60), file=file)
 
 
 def timed_run(step) -> float:
@@ -302,6 +310,44 @@ def timed_run(step) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / 1e3
+
+
+def device_sampler(device, n_nodes: int = 8192, n_walks: int = 4096,
+                   walk_len: int = 24, rounds: int = 8,
+                   rw_beta: float = 0.65):
+    """Anchor patches sampled per second by the device triangular-walk
+    sampler (sampling/device_walks.py) on bench.py's synthetic graph (the
+    same numpy draws: n_nodes nodes, n_nodes * 8 edges drawn, self loops
+    dropped): `rounds` rounds of n_walks walks of walk_len, timed between
+    CUDA events after one untimed warm-up round. Returns (rate, graph,
+    the last round's walks)."""
+    from .data.graph import CSRGraph
+    from .sampling.device_walks import (padded_neighbor_table,
+                                        triangular_walks_device)
+
+    rng_np = np.random.default_rng(0)
+    edges = rng_np.integers(1, n_nodes + 1, (n_nodes * 8, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    g = CSRGraph.from_edges(edges, n_nodes=n_nodes)
+    nbr, degs = padded_neighbor_table(g, device=device)
+    starts = torch.as_tensor(g.node_ids(), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def walk():
+        return triangular_walks_device(nbr, degs, starts, walk_len=walk_len,
+                                       n_walks=n_walks, rw_beta=rw_beta,
+                                       generator=gen, device=device)
+
+    walk()                                                  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        walks = walk()
+    end.record()
+    torch.cuda.synchronize()
+    return n_walks * rounds / (start.elapsed_time(end) / 1e3), g, walks
 
 
 def main(argv=None) -> int:
@@ -346,6 +392,7 @@ def main(argv=None) -> int:
           f"{float(np.median(eager_s)) / STEPS * 1e3!r}, graph "
           f"{float(np.median(graph_s)) / STEPS * 1e3!r}; captures "
           f"{graph.captures}", file=sys.stderr)
+    sampler_rate, _, _ = device_sampler(dev)
     print(json.dumps({
         "metric": "mpn_edges_per_s",
         "value": edges / float(np.median(graph_s)),
@@ -353,6 +400,7 @@ def main(argv=None) -> int:
         "run_spread": [edges / t for t in graph_s],
         "dtype": hp.dtype,
         "step": "cuda_graph",
+        "anchor_patch_samples_per_s": sampler_rate,
     }))
     if args.profile:
         profile_steps(graph, args.profile, "graph replay")

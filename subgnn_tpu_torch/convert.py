@@ -35,3 +35,10 @@ def params_from_jax(params_np, state_np=None,
     dev = resolve_device(device)
     return (tree_from_numpy(params_np, dev),
             tree_from_numpy(state_np or {}, dev))
+
+
+def gnn_params_from_jax(params_np, device: str | torch.device = "cuda"):
+    """The node-embedding pretrainer's parameters on `device`, from the JAX
+    package's ({"conv1": {"w", "b"}, "conv2": {"w", "b"}}, numpy arrays;
+    the same layout, w as (d_in, d_out))."""
+    return tree_from_numpy(params_np, resolve_device(device))

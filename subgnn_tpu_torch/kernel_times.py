@@ -42,11 +42,13 @@ path's widths).
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib
 import importlib.util
 import json
 import statistics
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -63,8 +65,9 @@ FLUSH_BYTES = 256 << 20     # copied before each traced call: > 5x the L2
 # width, unaligned bf16 rows, two slabs, and D=128 from a g off 16 bytes
 GENERAL_WIDTHS = (8, 100, 384, "128-misaligned")
 TRACED_CALLS = 20
-TRACE_TRIES = 3
-TRACE_SPARE = 3             # untimed calls traced first (see _traced_calls)
+TRACE_TRIES = 5
+TRACE_SPARE_S = 0.02        # spare calls traced before and after (see
+                            # _traced_calls), at least this long each side
 EAGER_CALLS = 50
 EAGER_LOOPS = 5
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
@@ -88,21 +91,34 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _flushed_call(fn, src, dst) -> None:
+    dst.copy_(src)
+    torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+
+
 def _traced_calls(fn, calls: int, src, dst) -> list:
-    """One torch.profiler trace of `calls` flushed calls of `fn`: each
-    call's device activities, cut at the flush copies. TRACE_SPARE more
-    calls run first, so a trace that misses its first copies (late in a
-    long process the profiler has dropped two) still holds them all."""
+    """One torch.profiler trace of flushed calls of `fn`: each call's
+    device activities, cut at the flush copies. Spare calls run for
+    TRACE_SPARE_S before the `calls` calls and as long after them: the
+    profiler drops device activities near the ends of its window (on the
+    card, late in a long process, up to the first four calls' worth), and
+    the spares take that loss."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def spares():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < TRACE_SPARE_S:
+            _flushed_call(fn, src, dst)
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls + TRACE_SPARE):
-            dst.copy_(src)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
+        spares()
+        for _ in range(calls):
+            _flushed_call(fn, src, dst)
+        spares()
     acts = sorted((e for e in prof.events()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
@@ -112,7 +128,22 @@ def _traced_calls(fn, calls: int, src, dst) -> list:
             per_call.append([])
         elif per_call:
             per_call[-1].append(e)
-    return per_call[-calls:]
+    return per_call
+
+
+def whole_calls(per_call: list, calls: int) -> list:
+    """`calls` of the traced calls, from the middle of those that hold the
+    most common number of device activities (`fn` launches the same work
+    each call): a call that lost an activity, or that took in the next
+    call's when the profiler dropped a flush copy, holds another number.
+    Fewer when fewer are whole."""
+    counts = collections.Counter(len(a) for a in per_call if a)
+    if not counts:
+        return []
+    modal = counts.most_common(1)[0][0]
+    whole = [a for a in per_call if len(a) == modal]
+    first = max(0, (len(whole) - calls) // 2)
+    return whole[first:first + calls]
 
 
 def device_times(fn, calls: int = TRACED_CALLS) -> dict:
@@ -121,22 +152,25 @@ def device_times(fn, calls: int = TRACED_CALLS) -> dict:
     full of dirty lines, as the step's own earlier kernels would. The
     device timeline is cut at the copies (`fn` must make
     none of its own): a call's device activities are those after the last
-    copy before it. A trace that lost activities (the profiler drops some
-    now and then, the first copies most often) is taken again, up to
-    TRACE_TRIES times. Returns {"device_ms", "span_ms", "activities":
-    {name: ms per call}} (medians over the calls; activities are means)."""
+    copy before it. A trace that holds fewer than `calls` whole calls (see
+    whole_calls) is taken again, up to TRACE_TRIES times. Returns
+    {"device_ms", "span_ms", "activities": {name: ms per call}} (medians
+    over the calls; activities are means)."""
     src = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     dst = torch.empty_like(src)
     fn()
     torch.cuda.synchronize()
     for _ in range(TRACE_TRIES):
         per_call = _traced_calls(fn, calls, src, dst)
-        if len(per_call) == calls and all(per_call):
+        picked = whole_calls(per_call, calls)
+        if len(picked) == calls:
             break
     else:
-        raise RuntimeError(f"device_times: {len(per_call)} flushes traced for "
-                           f"{calls} calls, activities per call "
-                           f"{sorted({len(a) for a in per_call})}")
+        raise RuntimeError(
+            f"device_times: {len(picked)} whole calls of {calls} in "
+            f"{len(per_call)} flushes traced, activities per call "
+            f"{sorted(collections.Counter(len(a) for a in per_call).items())}")
+    per_call = picked
     device_ms = [sum(e.time_range.elapsed_us() for e in a) / 1e3
                  for a in per_call]
     span_ms = [(max(e.time_range.end for e in a)

@@ -17,6 +17,13 @@ see the source for its design and bound); a CPU tensor takes the plain
 version `segment_matmul_torch`, the torch form of `_segment_matmul_xla`
 (a per-tile one-hot product). `embedding_gather` wraps the gather and that
 backward in a `torch.autograd.Function`.
+
+The same sum is a sparse-dense product over a fixed edge array:
+`segment_sum(msgs, dst, plan)` is out[v] = sum of msgs[e] over the edges
+with dst[e] = v, with `plan` built by make_gather_plan from `dst`. Its
+backward is the gather grad[dst]; the node-embedding pretrainer
+(prepare/node_emb.py) pairs it with `embedding_gather` by `src`, so both
+directions of its SpMM run on the kernel.
 """
 from __future__ import annotations
 
@@ -293,3 +300,30 @@ def embedding_gather(table: torch.Tensor, ids: torch.Tensor,
                      plan: GatherPlan) -> torch.Tensor:
     """table[ids] with the plan-routed backward (see EmbeddingGather)."""
     return EmbeddingGather.apply(table, ids, plan)
+
+
+class SegmentSum(torch.autograd.Function):
+    """out[v] = sum of msgs[e] over the e with dst[e] = v, through
+    `segment_matmul` over `plan` (built from exactly `dst` by
+    make_gather_plan, n_rows = out rows); the backward is the gather
+    grad[dst]."""
+
+    @staticmethod
+    def forward(ctx, msgs, dst, plan):
+        ctx.save_for_backward(dst)
+        g = msgs.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
+        return segment_matmul(g, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dst, = ctx.saved_tensors
+        return grad[dst], None, None
+
+
+def segment_sum(msgs: torch.Tensor, dst: torch.Tensor,
+                plan: GatherPlan) -> torch.Tensor:
+    """(plan.n_rows, D) sums of the rows of msgs (E, D) by `dst` (see
+    SegmentSum)."""
+    return SegmentSum.apply(msgs, dst, plan)

@@ -134,3 +134,17 @@ def shortest_path_rows(graph: CSRGraph, sources: np.ndarray,
         return _bfs_from_sources_host(
             graph, np.ascontiguousarray(sources, dtype=np.int64))
     return native.bfs_from_sources(graph, sources, n_threads=n_threads)
+
+
+def ego_graphs_1hop(graph: CSRGraph) -> dict:
+    """{raw 0-based id: [raw 0-based 1-hop neighbor ids]}, the content of
+    the reference's ego_graphs.txt (precompute_graph_metrics.py:34-45)."""
+    return {v - 1: (graph.neighbors(v) - 1).tolist()
+            for v in range(1, graph.n_nodes + 1)}
+
+
+def degree_dict(graph: CSRGraph) -> dict:
+    """{raw 0-based id: degree}, the content of degree_sequence.txt
+    (precompute_graph_metrics.py:47-59)."""
+    deg = graph.degrees
+    return {v - 1: int(deg[v]) for v in range(1, graph.n_nodes + 1)}

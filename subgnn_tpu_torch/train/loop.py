@@ -109,6 +109,7 @@ class Adam:
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    weight_decay = 0.0
 
     def __init__(self, lr: float, grad_clip: float = 0.0, frozen: tuple = ()):
         self.lr, self.grad_clip, self.frozen = lr, grad_clip, tuple(frozen)
@@ -180,6 +181,8 @@ class Adam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu_hat, denom)
+        if self.weight_decay:          # optax.add_decayed_weights (AdamW)
+            torch._foreach_add_(upd, leaves, alpha=self.weight_decay)
         torch._foreach_mul_(upd, -self.lr)
         torch._foreach_add_(leaves, upd)
 

@@ -91,19 +91,15 @@ def binary_auc(y_true, y_score) -> float:
     if n_pos == 0 or n_neg == 0:
         return float("nan")
     order = np.argsort(y_score, kind="mergesort")
-    ranks = np.empty(len(y_score), dtype=np.float64)
     sorted_scores = y_score[order]
-    # average ranks for ties
-    i = 0
-    r = 1.0
-    while i < len(sorted_scores):
-        j = i
-        while j + 1 < len(sorted_scores) and sorted_scores[j + 1] == sorted_scores[i]:
-            j += 1
-        avg = (r + r + (j - i)) / 2.0
-        ranks[order[i:j + 1]] = avg
-        r += j - i + 1
-        i = j + 1
+    # average ranks for ties: a run of equal scores starting at 0-based
+    # position i with s members gets (i + 1) + (s - 1) / 2
+    starts = np.ones(len(sorted_scores), dtype=bool)
+    starts[1:] = sorted_scores[1:] != sorted_scores[:-1]
+    first = np.flatnonzero(starts)
+    sizes = np.diff(np.append(first, len(sorted_scores)))
+    ranks = np.empty(len(y_score), dtype=np.float64)
+    ranks[order] = np.repeat((first + 1) + (sizes - 1) / 2.0, sizes)
     rank_sum = ranks[y_true].sum()
     return float((rank_sum - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 

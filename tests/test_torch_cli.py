@@ -6,10 +6,13 @@ Study/Trial: the same params, study.json and best trial for the same seed
 with the random, grid and TPE samplers, through resume and pruning. The
 CLIs run with -device cpu on copies of the mini fixture (D=8, 1 epoch) and
 must write the JAX CLIs' artifacts; flags not ported yet, and cuda without
-a GPU, exit non-zero.
+a GPU, exit non-zero. prepare_dataset (with and without --skip_graph) writes
+the JAX CLI's graph and metric files byte for byte, and embeddings of the
+right shape.
 """
 import json
 import shutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -314,3 +317,67 @@ def test_clis_refuse_cuda_without_a_gpu(mini_root, tmp_path, monkeypatch):
         Trainer(None, HParams(debug_mode=True))
     for made in ("tensorboard", "tb", "experiments"):
         assert not (mini_root / made).exists(), made
+
+
+# ------------------------------------------------------ prepare_dataset
+
+PREPARE_FILES = ("edge_list.txt", "subgraphs.pth", "ego_graphs.txt",
+                 "degree_sequence.txt", "shortest_path_matrix.npy")
+PREPARE_ARGS = ["-property", "density", "-seed", "7", "-n", "90",
+                "-n_subgraphs", "24", "-n_subgraph_nodes", "6",
+                "-emb_dim", "8", "-emb_epochs", "2"]
+
+
+def _prepare_jax(out, extra, monkeypatch):
+    from subgnn_tpu.cli import prepare_dataset as j_prepare
+    monkeypatch.setattr(sys, "argv", ["prepare_dataset", "-out", str(out)]
+                        + PREPARE_ARGS + extra)
+    j_prepare.main()
+
+
+def _prepare_torch(out, extra):
+    from subgnn_tpu_torch.cli import prepare_dataset as t_prepare
+    t_prepare.main(["-out", str(out)] + PREPARE_ARGS + extra
+                   + ["-device", "cpu"])
+
+
+def _check_embeddings(task, n_nodes, name="gin"):
+    emb = np.load(task / f"{name}_embeddings.npy")
+    assert emb.shape == (n_nodes, 8) and emb.dtype == np.float32
+    assert np.isfinite(emb).all()
+    pth = torch.load(task / f"{name}_embeddings.pth")
+    np.testing.assert_array_equal(pth.numpy(), emb)
+
+
+@pytest.mark.parametrize("skip_graph", [False, True])
+def test_prepare_dataset_cli_matches_jax(tmp_path, monkeypatch, capsys,
+                                         skip_graph):
+    j_out, t_out = tmp_path / "jax" / "density", tmp_path / "torch" / "density"
+    extra = []
+    if skip_graph:
+        # an existing graph and subgraph file (the JAX CLI's); --skip_graph
+        # writes only the metrics and the embeddings
+        _prepare_jax(tmp_path / "src", [], monkeypatch)
+        for out in (j_out, t_out):
+            out.mkdir(parents=True)
+            for f in PREPARE_FILES[:2]:
+                shutil.copy(tmp_path / "src" / f, out / f)
+        extra = ["--skip_graph", "-conv", "graphsaint_gcn"]
+    _prepare_jax(j_out, extra, monkeypatch)
+    _prepare_torch(t_out, extra)
+    for f in PREPARE_FILES:
+        assert (t_out / f).read_bytes() == (j_out / f).read_bytes(), f
+    n_nodes = int(np.load(t_out / "shortest_path_matrix.npy").shape[0])
+    assert n_nodes > 50
+    _check_embeddings(t_out, n_nodes, "graphsaint_gcn" if skip_graph
+                      else "gin")
+    assert "node embeddings: {" in capsys.readouterr().out
+
+
+def test_prepare_dataset_cli_refuses_cuda_without_a_gpu(tmp_path,
+                                                        monkeypatch):
+    from subgnn_tpu_torch.cli import prepare_dataset as t_prepare
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_prepare.main(["-out", str(tmp_path / "t")] + PREPARE_ARGS)
+    assert not (tmp_path / "t").exists()

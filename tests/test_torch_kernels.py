@@ -344,3 +344,72 @@ def test_segment_matmul_kernel_captured_and_replayed(cuda, dtype):
         assert (err <= _row_tol(gi, ids, n_rows + 8, ref)).all(), i
     assert graph.captures == 1 and graph.graph is not None
     assert not any(t.any() for t in E._tickets.values())  # left 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [128, 64, 20, 1])
+def test_spmm_through_segment_sum_matches_plain(cuda, D):
+    """The node-embedding pretrainer's SpMM (prepare/node_emb.py): the
+    gather x[src] (embedding_gather, backward by a src plan) and the sum by
+    dst (segment_sum), forward and backward on the kernel, against the
+    plain version of each sum on the same inputs, at a power-law in-degree
+    with a hub row of 1,500 edges (three tiles of 512 slots). Same
+    tolerance as above; two launches a direction, the same bits twice."""
+    from subgnn_tpu_torch.ops import embedding as E
+    rng = np.random.default_rng(D)
+    n = 3000
+    dst = np.concatenate([np.minimum(rng.zipf(1.8, 20000), n) - 1,
+                          np.full(1500, 7)])
+    src = rng.integers(0, n, dst.size)
+    plan_src = E.make_gather_plan(src, n).to(cuda)
+    plan_dst = E.make_gather_plan(dst, n).to(cuda)
+    src_t = torch.as_tensor(src, device=cuda)
+    dst_t = torch.as_tensor(dst, device=cuda)
+    x = torch.as_tensor(rng.normal(size=(n, D)), dtype=torch.float32,
+                        device=cuda)
+    g = torch.as_tensor(rng.normal(size=(n, D)), dtype=torch.float32,
+                        device=cuda)
+
+    def run():
+        xx = x.clone().requires_grad_()
+        out = E.segment_sum(E.embedding_gather(xx, src_t, plan_src), dst_t,
+                            plan_dst)
+        dx, = torch.autograd.grad(out, xx, g)
+        return out.detach(), dx
+
+    before = E.segment_matmul.launches
+    out, dx = run()
+    out2, dx2 = run()
+    assert E.segment_matmul.launches == before + 4
+    msgs, back = x[src_t], g[dst_t]
+    ref = E.segment_matmul_torch(msgs, plan_dst)
+    ref_dx = E.segment_matmul_torch(back, plan_src, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(dx, dx2)
+    assert ((out - ref).abs() <= _row_tol(msgs, dst, n, ref)).all()
+    assert ((dx - ref_dx).abs() <= _row_tol(back, src, n, ref_dx)).all()
+
+
+@pytest.mark.parametrize("lost", ["none", "first_calls", "last_calls",
+                                  "one_copy", "one_activity"])
+def test_device_times_keeps_only_whole_calls(lost):
+    """kernel_times cuts a trace at its flush copies; calls the profiler
+    cut short or ran together are left out, and the rest are taken from
+    the middle of the trace."""
+    from subgnn_tpu_torch.kernel_times import whole_calls
+    calls = [[("memset", i), ("kernel", i)] for i in range(30)]
+    if lost == "first_calls":
+        calls = [[("kernel", 3)]] + calls[4:]
+    elif lost == "last_calls":
+        calls = calls[:25] + [[("memset", 25)]]
+    elif lost == "one_copy":
+        calls = calls[:10] + [calls[10] + calls[11]] + calls[12:]
+    elif lost == "one_activity":
+        calls[10] = calls[10][:1]
+    picked = whole_calls(calls, 20)
+    assert len(picked) == 20
+    assert all(len(a) == 2 and a[0][1] == a[1][1] for a in picked)
+    ids = [a[0][1] for a in picked]
+    assert ids == sorted(set(ids))
+    assert whole_calls(calls, 40) == [a for a in calls if len(a) == 2]
+    assert whole_calls([[], []], 1) == []
