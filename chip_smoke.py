@@ -10,9 +10,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 walks, subgnn_tpu_torch/ops/native.py) and its seconds;
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card: DTW at serving shapes (G=2 groups x 64*15 comps x 150
-                pool patches, ragged and empty rows) and at a long case
-                (Lc=300, a few comps of 257-300 nodes), max abs error <=
-                1e-5, and whether the bits are equal is printed;
+                pool patches, ragged and empty rows), at a long case
+                (Lc=300, a few comps of 257-300 nodes) and at anchors past
+                the warp path's shared-memory strip (La = 60,000, its
+                boundary in global scratch; the plain version on the CPU,
+                where its 60,000 diagonals are not bound by launches), max
+                abs error <= 1e-5, and whether the bits are equal is
+                printed;
                 segment_matmul (the embedding-table gradient) at the bench's
                 plans (B=1280 bf16 and B=512 fp32, neigh and cc) and three
                 edge cases (every id on one row, only PAD ids, padding
@@ -60,6 +64,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 g and a new plan in its static buffers, against its plain
                 version at segment_check's tolerance in fp32 and bf16, one
                 launch counted a call;
+  4c. mesh    — the data axis of the training mesh (parallel/mesh.py) on
+                phase 4's task at 4b's widths: (a) an NCCL process group of
+                one rank in this process: Trainer(mesh=make_device_mesh(1))
+                fused (its gradient all-reduce captured in the train graph
+                and counted once a replay) and streaming, 2 epochs each,
+                against 4b's fits without a mesh (train/val losses within
+                rel 1e-6, bits equal printed; segment_matmul twice a step;
+                the all-reduce's bytes a step equal to the trainable
+                leaves'); a third fused fit traced with profile_dir gives
+                the NCCL kernels' share of the traced kernel time; (b) two
+                gloo ranks spawned on this one card (NCCL takes one rank a
+                card), a streaming (debug_mode) fit of 2 epochs against the
+                same fit in this process (train/val losses within rel 1e-4),
+                both ranks' parameters equal bit for bit and segment_matmul
+                launched twice a step on each; then a fused fit on those
+                ranks refused before its first step (gloo's all-reduce
+                cannot be captured), naming the backend;
   5. run      — whole training runs through the port's CLIs, in-process
                 (main() with sys.argv set) on -device cuda, at the flagship
                 widths (lin_dropout 0.1, anchor resampling) on a fresh task
@@ -536,7 +557,251 @@ def fused_phase(pipe, seed: int, benches):
           f"per call {counts}")
     check(counts == [1] * 6, f"captured segment_matmul counted {counts}")
     print(f"[fused] phase seconds {time.perf_counter() - t_phase:.2f}")
-    return err
+    return err, runs
+
+
+MESH_WORLD1_REL_TOL = 1e-6  # 4c (a): a one-rank all-reduce is exact
+MESH_GLOO_REL_TOL = 1e-4    # 4c (b): the batch's sums split over 2 ranks
+
+
+def mesh_rank(rank, store, rc, hp, seed, out):
+    """4c (b): one of two gloo ranks on cuda:0 (spawned: its own process),
+    a streaming fit on phase 4's task read from its caches; writes its
+    metrics, parameters and counts to <out>.<rank>.pt."""
+    sys.path.insert(0, str(HERE))
+    import torch
+    import torch.distributed as dist
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.train.checkpoint import to_numpy
+    from subgnn_tpu_torch.train.loop import Trainer
+    from subgnn_tpu_torch.train.runner import SubGNNPipeline
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = MX.make_device_mesh(2, device="cuda:0")
+        pipe = SubGNNPipeline(rc, hp, device="cuda:0").load().precompute(
+            recompute=False)
+        model, params, state = pipe.build_model(seed)
+        trainer = Trainer(model, hp, eval_cc_tables=pipe.eval_cc_tables(),
+                          device="cuda:0", mesh=mesh)
+        E.segment_matmul.launches = 0
+        MX.reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(params, state, pipe.split_data("train"),
+                    pipe.split_data("val"), pipe.sample_anchors(seed),
+                    seed=seed, log_fn=None)
+        secs = time.perf_counter() - t0
+        result = {"metrics": trainer.metric_scores,
+                  "params": to_numpy(trainer.params),
+                  "launches": E.segment_matmul.launches,
+                  "steps": trainer.global_step, "fused": trainer.fused,
+                  "secs": secs, "reduce_calls": MX.all_reduce_sum_.calls,
+                  "reduce_bytes": MX.all_reduce_sum_.bytes}
+        # a fused fit would capture gloo's all-reduce: refused before its
+        # first step, naming the backend
+        fused = Trainer(model, hp.replace(debug_mode=False),
+                        device="cuda:0", mesh=mesh)
+        try:
+            fused.fit(params, state, pipe.split_data("train"),
+                      pipe.split_data("val"), pipe.sample_anchors(seed),
+                      seed=seed, log_fn=None)
+            result["fused_refused"] = ""
+        except ValueError as e:
+            result["fused_refused"] = str(e)
+        result["fused_steps"] = fused.global_step
+        torch.save(result, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def trace_kernel_us(trace_dir: Path):
+    """(NCCL kernels' microseconds, all kernels' microseconds) in the
+    torch.profiler chrome trace written into `trace_dir`."""
+    nccl = total = 0.0
+    for path in trace_dir.rglob("*.pt.trace.json"):
+        for ev in json.loads(path.read_text()).get("traceEvents", []):
+            if ev.get("cat") == "kernel":
+                total += ev.get("dur", 0.0)
+                if "nccl" in ev.get("name", "").lower():
+                    nccl += ev.get("dur", 0.0)
+    return nccl, total
+
+
+def mesh_phase(pipe, seed: int, fused_runs, root: Path):
+    """Phase 4c: Trainer(mesh=...) on phase 4's task at 4b's widths, (a)
+    on an NCCL group of one rank in this process against 4b's mesh-less
+    fits, (b) on two gloo ranks on this card against this process."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from subgnn_tpu_torch.kernel_times import event_ms
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.train import graphs
+    from subgnn_tpu_torch.train.checkpoint import to_numpy
+    from subgnn_tpu_torch.train.loop import (Trainer, mpn_edges_per_step,
+                                             tree_leaves)
+
+    class Streaming(Trainer):
+        _split_bytes = staticmethod(lambda data: 1 << 40)
+
+    t_phase = time.perf_counter()
+    anchors = pipe.sample_anchors(seed)
+    train, val = pipe.split_data("train"), pipe.split_data("val")
+    hp = pipe.hp.replace(max_epochs=2, lin_dropout=0.0)
+    calls_at = graphs.COUNTED.index((MX.all_reduce_sum_, "calls"))
+    bytes_at = graphs.COUNTED.index((MX.all_reduce_sum_, "bytes"))
+
+    def fit(cls, mesh, hp, profile_dir=None):
+        model, params, state = pipe.build_model(seed)
+        model.hp = hp
+        trainer = cls(model, hp, eval_cc_tables=pipe.eval_cc_tables(),
+                      device=pipe.device, mesh=mesh)
+        E.segment_matmul.launches = 0
+        MX.reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(params, state, train, val, anchors, seed=seed,
+                    log_fn=None, profile_dir=profile_dir)
+        return trainer, time.perf_counter() - t0, E.segment_matmul.launches
+
+    # (a) one NCCL rank: the all-reduce issued (and captured) at world 1
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl_store",
+                            world_size=1, rank=0)
+    try:
+        mesh = MX.make_device_mesh(1, device=pipe.device)
+        print(f"[mesh] (a) {mesh}")
+        for mode, cls in (("fused", Trainer), ("streaming", Streaming)):
+            trainer, secs, launches = fit(cls, mesh, hp)
+            m, steps = trainer.metric_scores, trainer.global_step
+            check(trainer.fused is (mode == "fused"),
+                  f"mesh phase (a): the {mode} run took the other mode")
+            check(launches == 2 * steps, f"mesh phase (a) {mode}: "
+                  f"{launches} segment_matmul launches in {steps} steps")
+            # a step's gradients, plus the losses once an epoch
+            check(MX.all_reduce_sum_.calls == steps + len(m),
+                  f"mesh phase (a) {mode}: {MX.all_reduce_sum_.calls} "
+                  f"gradient all-reduces in {steps} steps")
+            leaf_bytes = sum(x.numel() * x.element_size()
+                             for x in trainer.tx.trainable(trainer.params))
+            per_step = ((MX.all_reduce_sum_.bytes - 4 * steps)
+                        / max(steps, 1))
+            check(per_step == leaf_bytes, f"mesh phase (a) {mode}: "
+                  f"{per_step} all-reduced bytes a step, trainable leaves "
+                  f"{leaf_bytes}")
+            replay = ""
+            if mode == "fused":
+                train_graph = trainer._graphs[0]
+                check(train_graph.captures == 1
+                      and train_graph.per_replay[calls_at] == 1
+                      and train_graph.per_replay[bytes_at] == leaf_bytes,
+                      f"mesh phase (a): the train graph holds "
+                      f"{train_graph.per_replay[calls_at]} all-reduces of "
+                      f"{train_graph.per_replay[bytes_at]} bytes a replay")
+                replay = (f", per train replay: all-reduce calls "
+                          f"{train_graph.per_replay[calls_at]}, bytes "
+                          f"{train_graph.per_replay[bytes_at]}")
+            pair = [(a[k], b[k]) for a, b in zip(m, fused_runs[mode, 0.0])
+                    for k in ("train_loss", "val_loss")]
+            worst = max(rel_diff(a, b) for a, b in pair)
+            print(f"[mesh] (a) NCCL world 1, {mode} fit: {secs:.2f}s, "
+                  f"{steps} steps, segment_matmul launches {launches}, "
+                  f"captures {trainer.fused_captures}, gradient all-reduce "
+                  f"bytes a step {int(per_step)} (trainable leaves "
+                  f"{leaf_bytes}){replay}; epoch_time_s "
+                  f"{[x['epoch_time_s'] for x in m]!r}, train_edges_per_s "
+                  f"{[x['train_edges_per_s'] for x in m]!r}; vs 4b's {mode} "
+                  f"fit without a mesh: train/val losses max rel diff "
+                  f"{worst!r} (tol {MESH_WORLD1_REL_TOL}), bits equal "
+                  f"{all(a == b for a, b in pair)}")
+            check(worst <= MESH_WORLD1_REL_TOL, f"mesh phase (a): the "
+                  f"{mode} fit on one NCCL rank disagrees with 4b's")
+            if mode == "fused":
+                fused_trainer = trainer
+        # the gradient all-reduce alone, eager and captured (StepGraph),
+        # on copies of the trainable leaves, against a warm fused step
+        leaves = [x.detach().clone()
+                  for x in fused_trainer.tx.trainable(fused_trainer.params)]
+        graph = graphs.StepGraph(lambda: MX.all_reduce_sum_(leaves, mesh),
+                                 pipe.device)
+        eager_ms = event_ms(lambda: MX.all_reduce_sum_(leaves, mesh), 50)
+        graph()
+        graph()
+        replay_ms = event_ms(graph, 50)
+        step_ms = 1e3 * mpn_edges_per_step(hp, hp.batch_size,
+                                           train.cc_ids.shape[1]) / \
+            fused_trainer.metric_scores[-1]["train_edges_per_s"]
+        print(f"[mesh] (a) gradient all-reduce of {len(leaves)} leaves "
+              f"({sum(x.numel() for x in leaves) * 4} bytes) on one NCCL "
+              f"rank: eager {eager_ms!r} ms, replayed {replay_ms!r} ms; a "
+              f"warm fused train step {step_ms!r} ms (from "
+              f"train_edges_per_s), the replayed all-reduce's share "
+              f"{replay_ms / step_ms!r}")
+        # the NCCL kernels' share of the traced kernel time of a fused fit
+        trace_dir = root / "mesh_trace"
+        trainer, secs, _ = fit(Trainer, mesh, hp, profile_dir=trace_dir)
+        nccl_us, kernel_us = trace_kernel_us(trace_dir)
+        steps = trainer.global_step
+        print(f"[mesh] (a) traced fused fit (profile_dir): {secs:.2f}s, "
+              f"{steps} train steps; NCCL kernels {nccl_us!r} us of "
+              f"{kernel_us!r} us of kernel time (train and eval), share "
+              f"{nccl_us / kernel_us if kernel_us else float('nan')!r}; "
+              f"{nccl_us / max(steps, 1)!r} us of NCCL a train step")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two gloo ranks on this card, streaming (debug_mode)
+    ghp = hp.replace(debug_mode=True)
+    one, one_secs, one_launches = fit(Trainer, None, ghp)
+    check(not one.fused, "mesh phase (b): the debug_mode fit was fused")
+    out = root / "mesh_gloo"
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(str(root / "gloo_store"), pipe.rc,
+                                        ghp, seed, str(out)),
+                       nprocs=2, start_method="spawn")
+    spawn_secs = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}.pt", weights_only=False)
+             for r in range(2)]
+    pair = [(a[k], b[k]) for a, b in zip(ranks[0]["metrics"],
+                                         one.metric_scores)
+            for k in ("train_loss", "val_loss")]
+    worst = max(rel_diff(a, b) for a, b in pair)
+    same_params = all(np.array_equal(a, b) for a, b in zip(
+        tree_leaves(ranks[0]["params"]),
+        tree_leaves(ranks[1]["params"])))
+    one_params = tree_leaves(to_numpy(one.params))
+    param_diff = max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(ranks[0]["params"]), one_params))
+    for r, res in enumerate(ranks):
+        check(not res["fused"] and res["launches"] == 2 * res["steps"]
+              and res["launches"] > 0, f"mesh phase (b) rank {r}: "
+              f"{res['launches']} segment_matmul launches in "
+              f"{res['steps']} steps")
+        check("'gloo'" in res["fused_refused"] and res["fused_steps"] == 0,
+              f"mesh phase (b) rank {r}: a fused fit over gloo on the card "
+              f"was not refused before its first step "
+              f"({res['fused_refused']!r})")
+    print(f"[mesh] (b) 2 gloo ranks on cuda:0, streaming (debug_mode) fit: "
+          f"spawn to exit {spawn_secs:.2f}s, fits "
+          f"{[round(r['secs'], 3) for r in ranks]}s (one process "
+          f"{one_secs:.2f}s); epoch_time_s rank 0 "
+          f"{[x['epoch_time_s'] for x in ranks[0]['metrics']]!r}, one "
+          f"process {[x['epoch_time_s'] for x in one.metric_scores]!r}; "
+          f"segment_matmul launches per rank "
+          f"{[r['launches'] for r in ranks]} in {ranks[0]['steps']} steps; "
+          f"gradient all-reduces {ranks[0]['reduce_calls']} "
+          f"({ranks[0]['reduce_bytes']} bytes); train/val losses vs one "
+          f"process max rel diff {worst!r} (tol {MESH_GLOO_REL_TOL}); "
+          f"params vs one process max abs diff {param_diff!r}; ranks' "
+          f"params bit-equal {same_params}; a fused fit refused: "
+          f"{ranks[0]['fused_refused']!r}")
+    check(worst <= MESH_GLOO_REL_TOL, "mesh phase (b): two gloo ranks "
+          "disagree with one process")
+    check(same_params, "mesh phase (b): the two ranks' parameters differ")
+    print(f"[mesh] phase seconds {time.perf_counter() - t_phase:.2f}")
+
 
 
 def drive(main, prog, args, tag="run"):
@@ -1205,13 +1470,14 @@ def main(argv=None) -> int:
             seqs[i, :lens[i]] = np.sort(gen.integers(0, 40, lens[i]))
         return seqs, lens
 
-    def dtw_check(arrays, G, nc, na):
-        """Kernel vs plain on the card: (max abs err, bits equal)."""
+    def dtw_check(arrays, G, nc, na, plain_device=dev):
+        """Kernel on the card vs plain on `plain_device`: (max abs err,
+        bits equal)."""
         kin = [torch.as_tensor(np.ascontiguousarray(x), device=dev)
                for x in arrays]
-        got = kdtw.dtw_distance_grouped(*kin, G, nc, na)
-        ref = kdtw.dtw_distance_grouped_torch(*kin, G, nc, na)
-        torch.cuda.synchronize()
+        got = kdtw.dtw_distance_grouped(*kin, G, nc, na).cpu()
+        ref = kdtw.dtw_distance_grouped_torch(
+            *(x.to(plain_device) for x in kin), G, nc, na).cpu()
         return float((got - ref).abs().max()), torch.equal(got, ref)
 
     # the serving shape, then a long case: 2 x 64 comps of up to 300 nodes
@@ -1227,18 +1493,48 @@ def main(argv=None) -> int:
     long_cl[lrng.choice(2 * 64, 6, replace=False)] = lrng.integers(257, 301, 6)
     for i, n in enumerate(long_cl):
         long_cs[i, :n] = np.sort(lrng.integers(0, 40, n))
+    # anchors past the warp path's shared-memory strip (La > 58,112): 6
+    # comps of up to 300 nodes (two past the register bound of 64, one
+    # empty) x 3 anchors of up to 60,000
+    wide_cl = np.array([300, 40, 0, 120, 64, 65], np.int32)
+    wide_al = np.array([60_000, 59_000, 5], np.int32)
+    wide_cs = np.zeros((6, 300), np.float32)
+    wide_as = np.zeros((3, 60_000), np.float32)
+    for seqs, lens in ((wide_cs, wide_cl), (wide_as, wide_al)):
+        for i, n in enumerate(lens):
+            seqs[i, :n] = np.sort(lrng.integers(0, 40, n))
     max_abs_err = 0.0
     for what, arrays, shape in (
             ("serving", (cs, cl, as_, al), (G, nc, na)),
-            ("long", (long_cs, long_cl, as_, al), (2, 64, na))):
-        err, same = dtw_check(arrays, *shape)
+            ("long", (long_cs, long_cl, as_, al), (2, 64, na)),
+            ("wide anchors", (wide_cs, wide_cl, wide_as, wide_al),
+             (1, 6, 3))):
+        t0 = time.perf_counter()
+        err, same = dtw_check(arrays, *shape,
+                              plain_device="cpu" if what == "wide anchors"
+                              else dev)
         max_abs_err = max(max_abs_err, err)
         print(f"[kernel] dtw_grouped vs plain, {what} case (G, nc, na) = "
-              f"{shape}, Lc={arrays[0].shape[1]} La={La}, comp lengths "
-              f"{int(arrays[1].min())}-{int(arrays[1].max())}: max_abs_err="
-              f"{err!r} (tol {DTW_TOL}), bits equal {same}")
+              f"{shape}, Lc={arrays[0].shape[1]} La={arrays[2].shape[1]}, "
+              f"comp lengths {int(arrays[1].min())}-{int(arrays[1].max())}, "
+              f"anchor lengths {int(arrays[3].min())}-"
+              f"{int(arrays[3].max())}: max_abs_err={err!r} (tol {DTW_TOL}), "
+              f"bits equal {same} ({time.perf_counter() - t0:.2f}s)")
         check(err <= DTW_TOL, f"DTW kernel disagrees with its plain version "
                               f"({what} case)")
+    # the wide-anchor path's time: its two launches a call (the grouped
+    # kernel, then the warp path with its boundary in global scratch)
+    wide_in = [torch.as_tensor(x, device=dev)
+               for x in (wide_cs, wide_cl, wide_as, wide_al)]
+    wide_ms = event_ms(lambda: kdtw.dtw_distance_grouped(*wide_in, 1, 6, 3),
+                       3)
+    wide_bound, wide_by, wide_cells = dtw_bound_ms(
+        wide_cl, wide_al, 1, 6, 3,
+        sum(x.nbytes for x in (wide_cs, wide_cl, wide_as, wide_al)) + 18 * 4)
+    print(f"[kernel] dtw_grouped wide anchors (La 60,000, "
+          f"{kdtw.strip_scratch_warps(60_000, 18)} scratch warps): "
+          f"{wide_ms!r} ms a call (CUDA events, 3 calls), {wide_cells} DP "
+          f"cells, bound {wide_bound!r} ms ({wide_by})")
 
     # segment_matmul at the bench's plans (the training path's own inputs:
     # the batches of phase 4) and at edge cases
@@ -1430,7 +1726,11 @@ def main(argv=None) -> int:
         dpipe = dataset_phase(root, graph, hp, rng, args.seed)
 
         # ------------------------------------------------------ 4b. fused
-        seg_err = max(seg_err, fused_phase(dpipe, args.seed, benches))
+        err, fused_runs = fused_phase(dpipe, args.seed, benches)
+        seg_err = max(seg_err, err)
+
+        # ------------------------------------------------------- 4c. mesh
+        mesh_phase(dpipe, args.seed, fused_runs, root)
         del dpipe
 
         # ---------------------------------------------------------- 5. run

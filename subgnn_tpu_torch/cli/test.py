@@ -9,7 +9,9 @@ Re-trains with the restored hyperparams.json on seeds 0..n-1 and reports
 mean/SD of test accuracy / micro-F1 / AUROC into experiment_results.json
 (reference: SubGNN/test.py:27-103, README.md:42-55). Port of
 subgnn_tpu/cli/test.py with the same flags and keys, plus -device (default
-cuda; pass -device cpu to run on the CPU).
+cuda; pass -device cpu to run on the CPU). Under torchrun every seed trains
+data-parallel over the launched ranks (the hyperparameters'
+mesh_data_axis; cli/train.py), with rank 0's seeds.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from ..config import HParams, RunConfig
+from ..parallel.mesh import broadcast_object, is_lead, process_group_from_env
 from ..train.checkpoint import dump_json
 from ..train.runner import SubGNNPipeline
 
@@ -37,8 +40,8 @@ def run_seeds(task: str, project_root: str, hyperparams_path: str,
     # default seeds 0..n-1, or fresh random draws per round like the
     # reference's --random_seeds (SubGNN/test.py:61-66)
     if random_seeds:
-        seeds = [int(s) for s in
-                 np.random.default_rng().integers(0, 1_000_001, n_seeds)]
+        seeds = broadcast_object([int(s) for s in np.random.default_rng()
+                                  .integers(0, 1_000_001, n_seeds)])
     else:
         seeds = list(range(n_seeds))
     accs, f1s, aurocs = [], [], []
@@ -56,7 +59,7 @@ def run_seeds(task: str, project_root: str, hyperparams_path: str,
         accs.append(t["test_acc"])
         f1s.append(t["test_micro_f1"])
         aurocs.append(t["test_auroc"])
-        if log_fn:
+        if log_fn and is_lead():
             log_fn(f"seed {seed}: acc={t['test_acc']:.4f} "
                    f"micro_f1={t['test_micro_f1']:.4f} "
                    f"auroc={t['test_auroc']:.4f}")
@@ -67,8 +70,9 @@ def run_seeds(task: str, project_root: str, hyperparams_path: str,
         "micro_f1_mean": float(np.mean(f1s)), "micro_f1_sd": float(np.std(f1s)),
         "auroc_mean": float(np.mean(aurocs)), "auroc_sd": float(np.std(aurocs)),
     }
-    dump_json(out_dir / "experiment_results.json", results)
-    if log_fn:
+    if is_lead():
+        dump_json(out_dir / "experiment_results.json", results)
+    if log_fn and is_lead():
         log_fn(json.dumps({k: v for k, v in results.items()
                            if k.endswith(("mean", "sd"))}, indent=2))
     return results
@@ -91,10 +95,11 @@ def main(argv=None):
                         help="torch device (default cuda; 'cpu' must be "
                              "asked for explicitly)")
     args = parser.parse_args(argv)
-    run_seeds(args.task, args.project_root,
-              str(Path(args.restoreModelPath) / "hyperparams.json"),
-              args.n_seeds, args.out_dir, args.max_epochs,
-              random_seeds=args.random_seeds, device=args.device)
+    with process_group_from_env(args.device) as device:
+        run_seeds(args.task, args.project_root,
+                  str(Path(args.restoreModelPath) / "hyperparams.json"),
+                  args.n_seeds, args.out_dir, args.max_epochs,
+                  random_seeds=args.random_seeds, device=device)
 
 
 if __name__ == "__main__":

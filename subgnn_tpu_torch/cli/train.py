@@ -13,6 +13,11 @@ intersection load), optional test-only evaluation, JSON artifact dumps,
 and the in-driver search (-opt_n_trials). -debug_mode trains streaming
 with per-step gradient norms and NaN checks; -profile_dir writes a
 torch.profiler trace of the fit.
+
+Data-parallel training (the hyperparameters' mesh_data_axis = N): launch N
+processes with torchrun, which joins them into one process group (NCCL on
+the card, one card a rank; gloo with -device cpu):
+  torchrun --nproc_per_node N -m subgnn_tpu_torch.cli.train ... [-device cpu]
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import json
 from pathlib import Path
 
 from ..config import HParams, RunConfig
-from ..device import resolve_device
+from ..parallel.mesh import is_lead, process_group_from_env
 from ..train.hpo import Study, TrialPruned, suggest_channels
 from ..train.runner import SubGNNPipeline
 
@@ -112,7 +117,7 @@ GRID_SEARCH_SPACE = {
 }
 
 
-def run_optuna_search(args, rc: RunConfig):
+def run_optuna_search(args, rc: RunConfig, device):
     """The reference's flow (2): -opt_n_trials set, no restoreModelPath
     (train.py:448-493) — resumable study over the in-driver ranges."""
     import random as _random
@@ -150,7 +155,7 @@ def run_optuna_search(args, rc: RunConfig):
             hyp["debug_mode"] = True
         results_dir = (None if args.no_save else study_path /
                        ("version_" + str(_random.randint(0, 10_000_000))))
-        pipe = SubGNNPipeline(rc, HParams.from_dict(hyp), device=args.device,
+        pipe = SubGNNPipeline(rc, HParams.from_dict(hyp), device=device,
                               results_dir=results_dir,
                               checkpoint_k=(0 if args.no_checkpointing
                                             else args.checkpoint_k),
@@ -168,9 +173,10 @@ def run_optuna_search(args, rc: RunConfig):
         return out["best_monitor"]
 
     study.optimize(objective, args.opt_n_trials)
-    print(json.dumps({"best_params": study.best_params,
-                      "best_value": study.best_trial["value"]},
-                     default=float))
+    if is_lead():
+        print(json.dumps({"best_params": study.best_params,
+                          "best_value": study.best_trial["value"]},
+                         default=float))
     return study
 
 
@@ -243,8 +249,13 @@ def main(argv=None):
                         help="torch device (default cuda; 'cpu' must be "
                              "asked for explicitly)")
     args = parser.parse_args(argv)
-    resolve_device(args.device)  # no GPU for "cuda": fail before any work
+    # no GPU for "cuda" fails here, before any work; under torchrun this
+    # joins the process group, which is destroyed at exit
+    with process_group_from_env(args.device) as device:
+        _main(args, device)
 
+
+def _main(args, device):
     hyp = default_hyperparams()
     if args.restoreModelPath:
         with open(Path(args.restoreModelPath) / "hyperparams.json") as f:
@@ -273,7 +284,7 @@ def main(argv=None):
                    embedding_path_override=args.embedding_path)
     if args.opt_n_trials is not None and args.restoreModelPath is None:
         # flow (2) of reference train.py:36-41: HPO over in-driver ranges
-        run_optuna_search(args, rc)
+        run_optuna_search(args, rc, device)
         return
 
     results_dir = (None if args.no_save
@@ -283,14 +294,16 @@ def main(argv=None):
     if args.restoreModelPath and args.restoreModelName:
         restore = Path(args.restoreModelPath) / args.restoreModelName
 
-    pipe = SubGNNPipeline(rc, HParams.from_dict(hyp), device=args.device,
+    pipe = SubGNNPipeline(rc, HParams.from_dict(hyp), device=device,
                           results_dir=results_dir,
                           checkpoint_k=(0 if args.no_checkpointing
                                         else args.checkpoint_k))
     out = pipe.run(restore_path=restore, resume_path=args.resume,
                    profile_dir=args.profile_dir)
-    print(json.dumps({"test": out["test"],
-                      "best_monitor": out["best_monitor"]}, default=float))
+    if is_lead():
+        print(json.dumps({"test": out["test"],
+                          "best_monitor": out["best_monitor"]},
+                         default=float))
 
 
 if __name__ == "__main__":

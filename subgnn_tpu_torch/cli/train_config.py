@@ -7,7 +7,9 @@ Runs an HPO study per the run config's hyperparams_optuna spec
 (reference: SubGNN/train_config.py:202-283), training one SubGNNPipeline per
 trial, logging each trial's artifacts under <tb.dir>/<tb.name>/version_<n>/
 and the study state beside them. Port of subgnn_tpu/cli/train_config.py,
-plus -device (default cuda; pass -device cpu to run on the CPU).
+plus -device (default cuda; pass -device cpu to run on the CPU). Under
+torchrun every trial trains data-parallel over the launched ranks (the
+config's mesh_data_axis; cli/train.py).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from pathlib import Path
 
 from ..config import HParams, RunConfig
 from ..device import resolve_device
+from ..parallel.mesh import is_lead, process_group_from_env
 from ..train.hpo import Study, Trial, TrialPruned, hyperparams_from_config
 from ..train.runner import SubGNNPipeline
 
@@ -51,7 +54,7 @@ def run_study(config_path: str, project_root: str | None = None,
         return out["best_monitor"]
 
     study.optimize(objective, n)
-    if log_fn:
+    if log_fn and is_lead():
         log_fn(f"best trial: {json.dumps(study.best_trial, default=float)}")
     return study
 
@@ -66,8 +69,9 @@ def main(argv=None):
                         help="torch device (default cuda; 'cpu' must be "
                              "asked for explicitly)")
     args = parser.parse_args(argv)
-    run_study(args.config_path, args.project_root, args.n_trials,
-              device=args.device)
+    with process_group_from_env(args.device) as device:
+        run_study(args.config_path, args.project_root, args.n_trials,
+                  device=device)
 
 
 if __name__ == "__main__":

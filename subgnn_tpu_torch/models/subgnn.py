@@ -14,7 +14,7 @@ then a 3-layer MLP head (SubGNN.py:295-310).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -193,20 +193,27 @@ class SubGNNModel(nn.Module):
         return emb[:nl], emb[nl:]
 
     @staticmethod
-    def _batch_norm(p, s, x, *, train: bool):
+    def _batch_norm(p, s, x, *, train: bool, moments=None):
         """BN over the flattened (B*C, D) view incl. padded rows (reference:
         SubGNN.py:267-290). Train mode normalises by the batch statistics
         and updates the running ones (variance with the unbiased factor
-        B*C/(B*C-1), subgnn_tpu/models/subgnn.py:206-220); eval mode uses
-        the running ones. Returns (y, new_state); the state is detached."""
+        n/(n-1) over n = B*C rows, subgnn_tpu/models/subgnn.py:206-220);
+        eval mode uses the running ones. `moments(flat)` -> (mean, biased
+        var, n) replaces the batch's own statistics (a data-parallel rank
+        passes the global batch's, parallel/mesh.py:bn_moments). Returns
+        (y, new_state); the state is detached."""
         B, C, D = x.shape
         flat = x.reshape(B * C, D)
         if train:
-            mean = flat.mean(dim=0)
-            var = flat.var(dim=0, unbiased=False)
+            if moments is None:
+                mean = flat.mean(dim=0)
+                var = flat.var(dim=0, unbiased=False)
+                n = B * C
+            else:
+                mean, var, n = moments(flat)
             new_s = {"mean": (0.9 * s["mean"] + 0.1 * mean).detach(),
-                     "var": (0.9 * s["var"] + 0.1 * var * (B * C)
-                             / max(B * C - 1, 1)).detach()}
+                     "var": (0.9 * s["var"] + 0.1 * var * n
+                             / max(n - 1, 1)).detach()}
         else:
             mean, var = s["mean"], s["var"]
             new_s = s
@@ -218,7 +225,8 @@ class SubGNNModel(nn.Module):
     def forward(self, params, state, batch: Dict[str, Any],
                 anchors: Dict[str, Any], *, train: bool = False,
                 keep_mask: Optional[KeepMask] = None,
-                cc_tables: Optional[Dict[str, Any]] = None):
+                cc_tables: Optional[Dict[str, Any]] = None,
+                bn_moments: Optional[Callable] = None):
         """(logits (B, num_classes) float32, new_state) for one batch.
 
         batch: cc_ids (B,C,L) int64; subgraph_idx (B,) int64; either NP_sim
@@ -232,6 +240,8 @@ class SubGNNModel(nn.Module):
                (models/dropout.py), which train mode needs whenever a
                dropout rate is non-zero.
         cc_tables: 6 per-channel (N, C, D) tables when trainable_cc.
+        bn_moments: train-mode batch-norm moments (`_batch_norm`); default
+               the batch's own.
         """
         hp = self.hp
         lstm_drop = (hp.use_structure and hp.lstm_dropout > 0
@@ -387,12 +397,12 @@ class SubGNNModel(nn.Module):
                 if hp.batch_norm:
                     N_in, bn_state[f"neighborhood_{l}_in"] = self._batch_norm(
                         layer_p["bn_in"], bn_state[f"neighborhood_{l}_in"],
-                        N_in, train=train)
+                        N_in, train=train, moments=bn_moments)
                     N_out, bn_state[f"neighborhood_{l}_out"] = \
                         self._batch_norm(
                             layer_p["bn_out"],
                             bn_state[f"neighborhood_{l}_out"], N_out,
-                            train=train)
+                            train=train, moments=bn_moments)
                 outputs[n_outputs_pos:n_outputs_pos] = [N_in, N_out]
 
         all_cc = torch.cat([init_cc] + outputs, dim=-1)          # (B, C, hid)
@@ -411,10 +421,10 @@ class SubGNNModel(nn.Module):
         dt = sg_embed.dtype
         x = torch.relu(sg_embed @ h["lin1"]["w"].to(dt) + h["lin1"]["b"].to(dt))
         if train and hp.lin_dropout > 0:
-            x = apply_dropout(x, hp.lin_dropout, keep_mask)
+            x = apply_dropout(x, hp.lin_dropout, keep_mask, batch_axis=0)
         x = torch.relu(x @ h["lin2"]["w"].to(dt) + h["lin2"]["b"].to(dt))
         if train and hp.lin_dropout > 0:
-            x = apply_dropout(x, hp.lin_dropout, keep_mask)
+            x = apply_dropout(x, hp.lin_dropout, keep_mask, batch_axis=0)
         logits = (x @ h["lin3"]["w"].to(dt)
                   + h["lin3"]["b"].to(dt)).to(torch.float32)
         if hp.batch_norm:
@@ -423,10 +433,13 @@ class SubGNNModel(nn.Module):
 
     # ------------------------------------------------------------------ loss
 
-    def loss_fn(self, logits, labels, valid=None):
+    def loss_fn(self, logits, labels, valid=None, n_valid=None):
         """BCE-with-logits (multilabel) or softmax CE
         (reference: SubGNN.py:169-172,337-342). `valid` masks padded rows of
-        short eval batches."""
+        short eval batches. `n_valid`: the count the masked sum is divided
+        by (default the valid rows here, at least 1); a data-parallel rank
+        passes its global batch's, so that the ranks' losses sum to the
+        batch's mean (and a rank with no valid rows gives 0)."""
         if self.multilabel:
             lab = labels.to(logits.dtype)
             per = (torch.clamp_min(logits, 0) - logits * lab
@@ -438,4 +451,6 @@ class SubGNNModel(nn.Module):
         if valid is None:
             return per.mean()
         w = valid.to(per.dtype)
+        if n_valid is not None:
+            return (per * w).sum() / n_valid
         return (per * w).sum() / w.sum().clamp_min(1.0)

@@ -3,9 +3,10 @@
 Each source under ``subgnn_tpu_torch/csrc/`` compiles with nvcc for sm_90a
 into a shared library with a plain C interface, bound with ctypes. Builds
 happen at first use (or all at once, in parallel, through `build`) into
-``build/kernels/`` beside the package, named by a digest of the source and
-flags so an edited source rebuilds. No PyTorch headers are compiled, which
-keeps a build to seconds.
+``build/kernels/`` beside the package (``~/.cache/subgnn_tpu_torch/kernels``
+where that cannot be written, see `build_dir`), named by a digest of the
+source and flags so an edited source rebuilds. No PyTorch headers are
+compiled, which keeps a build to seconds.
 """
 from __future__ import annotations
 
@@ -20,7 +21,25 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# the directory that holds the package: a checkout's root, or site-packages
+PACKAGE_PARENT = Path(__file__).resolve().parents[2]
+
+
+def build_dir(sub: str, parent: Path = PACKAGE_PARENT) -> Path:
+    """Where the port's libraries of kind `sub` build: ``parent/build/sub``
+    when it (or the nearest of its parents that exists) can be written, as
+    in a checkout, else ``~/.cache/subgnn_tpu_torch/sub`` (an installed
+    package in a place the user cannot write). The JAX package's host
+    library takes the same rule (subgnn_tpu/ops/native.py:_lib_dir)."""
+    local = parent / "build" / sub
+    nearest = next((d for d in (local, local.parent, parent) if d.exists()),
+                   None)
+    if nearest is not None and os.access(nearest, os.W_OK):
+        return local
+    return Path.home() / ".cache" / "subgnn_tpu_torch" / sub
+
+
+BUILD_DIR = build_dir("kernels")
 SOURCES = {"dtw": "dtw.cu", "segment_matmul": "segment_matmul.cu"}
 # IEEE division and no fast-math: the kernels stay bit-comparable to their
 # plain PyTorch versions

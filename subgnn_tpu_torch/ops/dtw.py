@@ -26,8 +26,12 @@ import torch
 _PLAIN_CHUNK = 1 << 16  # pairs per plain-version chunk (bounds memory)
 KERNEL_MIN_BLOCKS = 264  # two kernel blocks for each of an H100's 132 SMs
 # csrc/dtw.cu's warp path keeps La floats a warp of the 227 KB a block may
-# share, so La may not exceed MAX_STRIP_LA
+# share; above MAX_STRIP_LA it keeps them in global scratch instead: La
+# floats for each of at most STRIP_WARPS warps, STRIP_SCRATCH_BYTES at most
+# in all (but at least 8 warps)
 MAX_STRIP_LA = 232448 // 4
+STRIP_WARPS = 264
+STRIP_SCRATCH_BYTES = 256 << 20
 
 
 def dtw_distance_torch(a: torch.Tensor, la: torch.Tensor,
@@ -38,7 +42,8 @@ def dtw_distance_torch(a: torch.Tensor, la: torch.Tensor,
     lb: (N,). Returns (N,) float32; a pair with an empty sequence gets 0.
     Anti-diagonal wavefront, a transcription of
     subgnn_tpu/precompute/dtw.py:dtw_distance_batch: a Python loop over the
-    La+Lb-1 diagonals, vector work over (pairs, rows).
+    diagonals up to the last one a pair's answer lies on (at most La+Lb-1),
+    vector work over (pairs, rows).
     """
     N, La = a.shape
     Lb = b.shape[1]
@@ -53,7 +58,8 @@ def dtw_distance_torch(a: torch.Tensor, la: torch.Tensor,
     prev2 = torch.full((N, La), inf, device=dev)
     ans = torch.zeros(N, device=dev)
     pad = torch.full((N, 1), inf, device=dev)
-    for k in range(La + Lb - 1):
+    last = int(target_k.max()) if N else -1
+    for k in range(min(La + Lb - 1, last + 1)):
         j = k - rows                # column index per row on diagonal k
         valid = (j >= 0) & (j < Lb)
         bv = b[:, j.clamp(0, Lb - 1)]
@@ -105,7 +111,8 @@ def _kernel():
         lib = load("dtw")
         fn = lib.subgnn_dtw_grouped
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = fn
     return _lib
@@ -122,6 +129,17 @@ def kernel_block_warps(n_comps: int, na: int) -> int:
         if n_comps * -(-need // warps) >= KERNEL_MIN_BLOCKS:
             return warps
     return 1
+
+
+def strip_scratch_warps(La: int, n_pairs: int) -> int:
+    """Warps of csrc/dtw.cu's global strip kernel for anchors longer than
+    MAX_STRIP_LA (0 at or below it): STRIP_WARPS, or fewer where the pairs
+    or STRIP_SCRATCH_BYTES of La-float boundaries call for fewer, in
+    multiples of 8."""
+    if La <= MAX_STRIP_LA:
+        return 0
+    warps = min(STRIP_WARPS, n_pairs, STRIP_SCRATCH_BYTES // (4 * La))
+    return max(8, warps // 8 * 8)
 
 
 def _check(comp_seqs, comp_lens, anchor_seqs, anchor_lens, G, nc, na):
@@ -154,7 +172,8 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
     (G*nc,) int32; anchor_seqs (G*na, La), anchor_lens (G*na,). Pair p maps
     to group g = p // (nc*na), comp g*nc + r//na, anchor g*na + r%na with
     r = p % (nc*na). Lengths must not exceed the padded widths. CUDA tensors
-    launch csrc/dtw.cu once (any Lc, La <= MAX_STRIP_LA) and add one to
+    launch csrc/dtw.cu (any Lc and La; above MAX_STRIP_LA with a global
+    scratch of `strip_scratch_warps` x La floats) and add one to
     `dtw_distance_grouped.launches`; CPU tensors run the plain version.
     """
     _check(comp_seqs, comp_lens, anchor_seqs, anchor_lens, G, nc, na)
@@ -165,19 +184,21 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"dtw_distance_grouped: unsupported device {dev}")
     Lc, La = comp_seqs.shape[1], anchor_seqs.shape[1]
-    if La > MAX_STRIP_LA:
-        raise ValueError(f"dtw kernel takes anchor sequences up to "
-                         f"{MAX_STRIP_LA} long, got {La}")
     out = torch.empty(G * nc * na, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    warps = strip_scratch_warps(La, out.numel())
+    scratch = (torch.empty(warps * La, dtype=torch.float32, device=dev)
+               if warps else None)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(comp_seqs.data_ptr(), comp_lens.data_ptr(),
                  anchor_seqs.data_ptr(), anchor_lens.data_ptr(),
                  out.data_ptr(), G, nc, na, Lc, La,
-                 kernel_block_warps(G * nc, na), stream)
+                 kernel_block_warps(G * nc, na),
+                 None if scratch is None else scratch.data_ptr(), warps,
+                 stream)
     if err != 0:
         raise RuntimeError(f"dtw kernel launch failed: cudaError_t {err}")
     dtw_distance_grouped.launches += 1

@@ -13,7 +13,8 @@ The port of subgnn_tpu/ops/native.py, with the same functions and names:
     sampler's stream).
 
 The library builds at first use with g++ into ``build/native/`` beside the
-package, named by a digest of the source, the flags and ``g++ --version``,
+package (``~/.cache/subgnn_tpu_torch/native`` where that cannot be written:
+ops/build.py:build_dir), named by a digest of the source, the flags and ``g++ --version``,
 so an edited source or another compiler builds anew; each process writes
 its own temporary file and renames it into place, so concurrent builds
 never load a half-written library. A failed build raises: the numpy BFS it
@@ -38,8 +39,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from .build import build_dir
+
 SRC = Path(__file__).resolve().parents[1] / "native" / "subgnn_native.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_DIR = build_dir("native")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 

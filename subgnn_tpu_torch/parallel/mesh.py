@@ -1,0 +1,296 @@
+"""The training mesh on torch.distributed: its data axis.
+
+Port of subgnn_tpu/parallel/mesh.py. The JAX package lays a (data, node)
+jax.sharding.Mesh over the visible devices of one process and lets GSPMD
+place the batch and insert the collectives. Here each mesh position is a
+process (a rank): NCCL on the card, gloo on the CPU. Every rank holds the
+whole model, both splits and the optimizer state (`split_pspecs` replicates
+everything at n_node = 1); rank r computes rows [r*b, (r+1)*b) of each
+batch (b = B / n_data, `shard_batch`, the counterpart of `batch_pspecs` and
+`epoch_extras_pspecs`) and builds its own gather plans for them, so its
+embedding-table gradient is a dense tensor like every other leaf. The
+collectives GSPMD inserts become explicit calls here:
+
+  * `all_reduce_sum_`: the gradients, one flat all-reduce for the list,
+    before Adam (the JAX step's psum over 'data');
+  * `all_reduce_bn_stats`: batch norm's train-mode sums, inside autograd,
+    so that the moments and their backward are the global batch's;
+  * `all_gather_rows`: each rank's eval logits to every rank.
+
+Each helper counts its calls and the bytes it reduces (`calls`, `bytes`),
+as a kernel wrapper counts its launches; a captured step adds them per
+replay (train/graphs.py). The node axis (`mesh_node_axis`) is ROADMAP
+Queue 1 item 10: until it lands, asking for it raises.
+
+Launch with torchrun (`init_from_env`); tests and chip_smoke.py initialise
+the default group themselves with a file:// store.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Dict, Iterator, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+AXIS_NAMES = ("data", "node")
+# batch keys that are not batch-major: the layer-major compact anchor-column
+# similarities (train/sims.py), (L, B, C, A): rank r takes axis 1
+COMPACT_SIM_KEYS = ("neigh_sims", "pos_in_sims", "pos_out_sims")
+NODE_AXIS_TODO = ("mesh_node_axis > 1 (sharding the node embedding table and "
+                  "the NP similarities over ranks) is not ported yet: ROADMAP "
+                  "Queue 1 item 10")
+
+
+class Mesh:
+    """A (data, node) mesh of the ranks of a process group: this rank's
+    position and device, and the group the collectives run over."""
+
+    axis_names = AXIS_NAMES
+
+    def __init__(self, group, n_data: int, n_node: int, rank: int,
+                 world: int, device: torch.device):
+        self.group, self.n_data, self.n_node = group, n_data, n_node
+        self.rank, self.world, self.device = rank, world, device
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """{"data": n_data, "node": n_node}, as jax.sharding.Mesh.shape."""
+        return dict(zip(AXIS_NAMES, (self.n_data, self.n_node)))
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+    @property
+    def lead(self) -> bool:
+        """Rank 0: the one rank that writes files."""
+        return self.rank == 0
+
+    def rows(self, batch_size: int) -> slice:
+        """This rank's rows of a batch of `batch_size`."""
+        b = batch_size // self.n_data
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank {self.rank} of {self.world}, "
+                f"{self.backend}, {self.device})")
+
+
+def make_device_mesh(n_data: Optional[int] = None, n_node: int = 1,
+                     group=None, device=None) -> Mesh:
+    """The mesh over `group` (default: the default process group), every
+    rank a position: n_data defaults to world // n_node, and n_data *
+    n_node must equal the world size. `device`: this rank's device
+    (default cuda:current for NCCL, the CPU for gloo)."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_device_mesh needs a process group: launch with torchrun "
+            "(parallel/mesh.py:init_from_env) or call "
+            "torch.distributed.init_process_group first")
+    group = dist.group.WORLD if group is None else group
+    world = dist.get_world_size(group)
+    if n_node != 1:
+        raise ValueError(NODE_AXIS_TODO)
+    if n_data is None:
+        n_data = world // n_node
+    need = n_data * n_node
+    if need > world:
+        raise ValueError(f"a ({n_data}, {n_node}) mesh needs {need} ranks, "
+                         f"the process group has {world}")
+    if need != world:
+        raise ValueError(f"a ({n_data}, {n_node}) mesh would leave "
+                         f"{world - need} of the group's {world} ranks idle")
+    if device is None:
+        device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(group, n_data, n_node, dist.get_rank(group), world, dev)
+
+
+def mesh_from_hparams(hp, group=None, device=None) -> Optional[Mesh]:
+    """The mesh the HParams ask for (mesh_data_axis x mesh_node_axis), or
+    None for the one-process path (a product of 1). No process group
+    counts as a world of 1, so asking for more raises."""
+    n_data = int(getattr(hp, "mesh_data_axis", 1) or 1)
+    n_node = int(getattr(hp, "mesh_node_axis", 1) or 1)
+    if n_data * n_node <= 1:
+        return None
+    if n_node > 1:
+        raise ValueError(NODE_AXIS_TODO)
+    avail = (dist.get_world_size(group) if dist.is_initialized() else 1)
+    if n_data * n_node > avail:
+        raise ValueError(
+            f"mesh_data_axis*mesh_node_axis = {n_data}*{n_node} exceeds the "
+            f"{avail} ranks of the process group (launch one process a rank, "
+            f"e.g. torchrun --nproc_per_node {n_data * n_node})")
+    return make_device_mesh(n_data=n_data, n_node=n_node, group=group,
+                            device=device)
+
+
+_LAUNCH_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
+
+
+def init_from_env(device=None) -> torch.device:
+    """Under a torchrun launch (WORLD_SIZE, RANK and LOCAL_RANK set):
+    initialise the default process group from the environment, unless one
+    is already, NCCL with cuda:LOCAL_RANK, or gloo when `device` is the
+    CPU; returns this rank's device. Without a launch it initialises
+    nothing and returns `device` (default cuda) as resolve_device gives
+    it: no GPU raises unless the CPU is asked for."""
+    dev = resolve_device("cuda" if device is None else device)
+    if not all(k in os.environ for k in _LAUNCH_VARS):
+        return dev
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://")
+    return dev
+
+
+@contextlib.contextmanager
+def process_group_from_env(device=None) -> Iterator[torch.device]:
+    """`init_from_env` for a CLI: yields the device, and destroys the
+    default group at exit if this call created it."""
+    created = not dist.is_initialized()
+    dev = init_from_env(device)
+    try:
+        yield dev
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def is_lead() -> bool:
+    """No process group, or rank 0 of the default one: the process that
+    writes a run's files."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def broadcast_object(obj: Any, group=None) -> Any:
+    """Rank 0's `obj` on every rank of `group` (default: the default
+    group; identity without a process group)."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, group_src=0, group=group)
+    return box[0]
+
+
+def all_gather_objects(obj: Any, mesh: Mesh) -> List[Any]:
+    """Every rank's `obj`, in rank order."""
+    out: List[Any] = [None] * mesh.world
+    dist.all_gather_object(out, obj, group=mesh.group)
+    return out
+
+
+# ------------------------------------------------------------ collectives
+
+def _count(helper, t: torch.Tensor) -> None:
+    helper.calls += 1
+    helper.bytes += t.numel() * t.element_size()
+
+
+def all_reduce_sum_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Sum each tensor over the mesh's ranks, in place: one all-reduce of
+    the list flattened into one buffer (one dtype)."""
+    if not tensors:
+        return
+    if len({t.dtype for t in tensors}) != 1:
+        raise TypeError("all_reduce_sum_ takes tensors of one dtype, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group)
+    _count(all_reduce_sum_, flat)
+    parts = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [p.view_as(t)
+                                   for p, t in zip(parts, tensors)])
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """y = the sum of x over the ranks; the loss being the sum of the ranks'
+    losses, the gradient of x is the sum of the ranks' gradients of y."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.group)
+        _count(all_reduce_bn_stats, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.mesh.group)
+        _count(all_reduce_bn_stats, grad)
+        return grad, None
+
+
+def all_reduce_bn_stats(stats: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`stats` summed over the ranks, differentiably (see _SumOverRanks)."""
+    return _SumOverRanks.apply(stats, mesh)
+
+
+def bn_moments(flat: torch.Tensor, mesh: Mesh):
+    """Batch norm's train-mode moments of the global batch from this rank's
+    (rows, D) slice: (mean, biased variance, global row count), from one
+    all-reduce of the fp32 sum and sum of squares."""
+    x = flat.float()
+    sums = all_reduce_bn_stats(torch.stack([x.sum(0), (x * x).sum(0)]), mesh)
+    n = flat.shape[0] * mesh.n_data
+    mean = sums[0] / n
+    var = (sums[1] / n - mean * mean).clamp_min(0.0)
+    return mean.to(flat.dtype), var.to(flat.dtype), n
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """(n_data * b, ...) from each rank's (b, ...) rows, in rank order, on
+    every rank: an all-reduce of a zero buffer holding this rank's rows in
+    its place (exact: every other term is 0), which gloo takes for CUDA
+    tensors as NCCL does, and a CUDA graph captures."""
+    b = x.shape[0]
+    full = x.new_zeros((b * mesh.n_data,) + tuple(x.shape[1:]))
+    full[mesh.rank * b:(mesh.rank + 1) * b] = x
+    dist.all_reduce(full, group=mesh.group)
+    _count(all_gather_rows, full)
+    return full
+
+
+COLLECTIVES = (all_reduce_sum_, all_reduce_bn_stats, all_gather_rows)
+for _helper in COLLECTIVES:
+    _helper.calls = 0
+    _helper.bytes = 0
+
+
+def reset_counts() -> None:
+    for helper in COLLECTIVES:
+        helper.calls = helper.bytes = 0
+
+
+# ---------------------------------------------------------- batch slicing
+
+def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's part of a global batch (numpy arrays or tensors): rows
+    of each batch-major key, axis 1 of the layer-major compact sims. Gather
+    plans are built per rank from its own ids (train/plans.py), never
+    sliced."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            out[k] = None
+        elif k.endswith("_plan"):
+            raise ValueError(f"{k}: build a rank's gather plans from its own "
+                             "rows, after shard_batch")
+        elif k in COMPACT_SIM_KEYS:
+            out[k] = v[:, mesh.rows(v.shape[1])]
+        else:
+            out[k] = v[mesh.rows(v.shape[0])]
+    return out
+

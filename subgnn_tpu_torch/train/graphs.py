@@ -19,10 +19,11 @@ On the CPU every call runs the step eagerly, through the same sequence
 (`captures` counts where the card would capture), so the CPU tests drive
 the fused trainer's control flow. A failed capture or replay raises.
 
-Capture launches no kernel, yet the kernel wrappers called while capturing
-add to their `launches` counts. So the counts are put back after capture,
-and each replay adds the launches it holds: a wrapper's count still reads
-one per launch on the card.
+Capture launches no kernel and runs no collective, yet the kernel wrappers
+and the mesh's collective helpers (parallel/mesh.py) called while capturing
+add to their counts (`launches`; `calls` and `bytes`). So the counts are
+put back after capture, and each replay adds what it holds: a count still
+reads one per launch, or per collective, on the card.
 """
 from __future__ import annotations
 
@@ -31,9 +32,13 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops import embedding
+from ..parallel import mesh
 
-# the kernel wrappers a training step calls, with their `launches` counts
-COUNTED = (embedding.segment_matmul,)
+# (object, attribute) of each count a training step may add to: the kernel
+# wrappers' launches, the collectives' calls and bytes
+COUNTED = ((embedding.segment_matmul, "launches"),
+           *((helper, attr) for helper in mesh.COLLECTIVES
+             for attr in ("calls", "bytes")))
 
 
 class StepGraph:
@@ -66,8 +71,8 @@ class StepGraph:
             if self.graph is None:
                 self._capture()
             self.graph.replay()
-            for wrapper, n in zip(COUNTED, self.per_replay):
-                wrapper.launches += n
+            for (obj, attr), n in zip(COUNTED, self.per_replay):
+                setattr(obj, attr, getattr(obj, attr) + n)
 
     def _eager_on_side_stream(self) -> None:
         main = torch.cuda.current_stream(self.device)
@@ -80,11 +85,11 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        before = [w.launches for w in COUNTED]
+        before = [getattr(obj, attr) for obj, attr in COUNTED]
         with torch.cuda.graph(graph, stream=self.stream):
             self.fn()
-        self.per_replay = [w.launches - b for w, b in zip(COUNTED,
-                                                          before)]
-        for wrapper, b in zip(COUNTED, before):
-            wrapper.launches = b
+        self.per_replay = [getattr(obj, attr) - b
+                           for (obj, attr), b in zip(COUNTED, before)]
+        for (obj, attr), b in zip(COUNTED, before):
+            setattr(obj, attr, b)
         self.graph = graph

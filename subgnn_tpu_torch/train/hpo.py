@@ -23,6 +23,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import is_lead
+
 
 class TrialPruned(Exception):
     """Raised inside an objective to stop an unpromising trial early."""
@@ -332,6 +334,8 @@ class Study:
             self.tpe.trials = self.trials
 
     def _save(self):
+        if not is_lead():   # one writer a multi-rank run: rank 0
+            return
         self.path.parent.mkdir(parents=True, exist_ok=True)
         # write-temp-then-rename: _save runs after EVERY trial, and study
         # files are snapshotted/copied by external harvesters (scripts/

@@ -3,7 +3,7 @@
 Port of subgnn_tpu/train/loop.py (reference runtime: pl.Trainer with Adam,
 global-norm gradient clipping, per-epoch validation, top-3 checkpointing on
 the monitored metric, SubGNN/train_config.py:109-158,
-SubGNN/SubGNN.py:317-504,1156-1161), without meshes.
+SubGNN/SubGNN.py:317-504,1156-1161), with the data axis of its mesh.
 
 Parameters are the model's explicit tree of tensors (JAX layout). A step
 runs the training forward, the loss, `torch.autograd.grad` over the
@@ -30,6 +30,17 @@ updates the leaves in place and keeps its step count on the device.
 `metrics_callback`, `on_epoch_end` anchor resampling), resumes from a
 checkpoint (`resume_from`) and traces itself with torch.profiler into
 `profile_dir`; `lr_find` is the LR range test.
+
+On a mesh (`Trainer(mesh=...)`, or the hparams' mesh_data_axis through
+parallel/mesh.py:mesh_from_hparams) every rank runs this same loop over the
+same epoch orders and holds every parameter; rank r computes rows
+[r*b, (r+1)*b) of each batch with its own gather plans, and the step sums
+the gradients over the ranks before Adam (inside the captured step in the
+fused mode), with batch norm's moments, dropout masks and the loss those of
+the whole batch (`loss_and_grads`): the fit is the one-process fit. Eval
+logits are gathered to every rank before the metrics, so every rank makes
+the same checkpoint and early-stop decisions; rank 0 alone writes
+checkpoints, TensorBoard scalars and log lines.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ from ..device import resolve_device
 from ..models.dropout import KeepMask, generator_keep_mask
 from ..models.subgnn import SubGNNModel
 from ..ops.embedding import GatherPlan
+from ..parallel import mesh as MX
 from . import metrics as M
 from .checkpoint import TopKCheckpoints, load_checkpoint
 from .graphs import StepGraph
@@ -220,27 +232,45 @@ def device_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def loss_and_grads(model: SubGNNModel, tx: Adam, params, state, batch,
-                   anchors, keep_mask: Optional[KeepMask] = None):
+                   anchors, keep_mask: Optional[KeepMask] = None,
+                   mesh: Optional[MX.Mesh] = None,
+                   n_valid: Optional[int] = None):
     """Training forward, loss and gradients of the trainable leaves.
-    Returns (loss, logits, new_state, grads), the first two detached."""
+    Returns (loss, logits, new_state, grads), the first two detached.
+
+    On a `mesh`, `batch` is this rank's rows and `n_valid` the whole
+    batch's valid rows: the loss is this rank's masked sum over n_valid
+    (the ranks' losses sum to the batch's mean; a rank with no valid row
+    gives 0), batch norm takes the whole batch's moments
+    (parallel/mesh.py:bn_moments), and the gradients are summed over the
+    ranks (`all_reduce_sum_`), so every rank gets the one-process batch's
+    gradients, as the JAX step's psum gives them."""
+    bn_moments = (None if mesh is None
+                  else lambda flat: MX.bn_moments(flat, mesh))
     logits, new_state = model(params, state, batch, anchors, train=True,
                               keep_mask=keep_mask,
-                              cc_tables=params.get("train_cc"))
-    loss = model.loss_fn(logits, batch["label"], batch["valid"])
+                              cc_tables=params.get("train_cc"),
+                              bn_moments=bn_moments)
+    loss = model.loss_fn(logits, batch["label"], batch["valid"], n_valid)
     # leaves the forward does not reach get zero gradients, as in jax.grad
     grads = list(torch.autograd.grad(loss, tx.trainable(params),
                                      allow_unused=True,
                                      materialize_grads=True))
+    if mesh is not None:
+        MX.all_reduce_sum_(grads, mesh)
     return loss.detach(), logits.detach(), new_state, grads
 
 
 def train_step(model: SubGNNModel, tx: Adam, params, opt_state, state,
-               batch, anchors, keep_mask: Optional[KeepMask] = None):
+               batch, anchors, keep_mask: Optional[KeepMask] = None,
+               mesh: Optional[MX.Mesh] = None,
+               n_valid: Optional[int] = None):
     """One step (subgnn_tpu/train/loop.py:104-118): forward + loss +
-    backward + Adam; params and opt_state are updated in place. Returns
-    (loss, logits, new_state) without synchronising with the device."""
+    backward (+ the gradients' sum over a mesh's ranks, `loss_and_grads`)
+    + Adam; params and opt_state are updated in place. Returns (loss,
+    logits, new_state) without synchronising with the device."""
     loss, logits, new_state, grads = loss_and_grads(
-        model, tx, params, state, batch, anchors, keep_mask)
+        model, tx, params, state, batch, anchors, keep_mask, mesh, n_valid)
     tx.step(params, grads, opt_state)
     return loss, logits, new_state
 
@@ -251,14 +281,22 @@ class Trainer:
                  monitor: str = "val_micro_f1", checkpoint_k: int = 3,
                  eval_cc_tables: Optional[Dict[str, Any]] = None,
                  tb_dir: Optional[str] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[MX.Mesh] = None):
         self.model = model
         self.hp = hp
         self.device = resolve_device(device)
+        # the data axis of the JAX trainer's mesh (loop.py:77): given, or
+        # from mesh_data_axis / mesh_node_axis (None: one process)
+        self.mesh = (mesh if mesh is not None
+                     else MX.mesh_from_hparams(hp, device=self.device))
+        if self.mesh is not None:
+            self._check_mesh()
         self.monitor = monitor
+        lead = self.mesh is None or self.mesh.lead
         self.ckpt = (TopKCheckpoints(ckpt_dir, checkpoint_k, monitor)
-                     if ckpt_dir else None)
-        self.tb = TBWriter(tb_dir) if tb_dir else None
+                     if ckpt_dir and lead else None)
+        self.tb = TBWriter(tb_dir) if tb_dir and lead else None
         self.metric_scores: List[Dict[str, Any]] = []
         self.eval_cc_tables = eval_cc_tables or {}
         self.tx = make_optimizer(hp)
@@ -271,19 +309,34 @@ class Trainer:
         self._grad_norms: List[float] = []     # debug_mode, per step
         self._graphs: List[StepGraph] = []
 
-    # ---------------------------------------------------------------- steps
+    def _check_mesh(self) -> None:
+        """The JAX trainer's checks (loop.py:411-416), and the trainer's
+        device as the mesh's."""
+        mesh, B = self.mesh, self.hp.batch_size
+        if mesh.n_node != 1:
+            raise ValueError(MX.NODE_AXIS_TODO)
+        if B % mesh.n_data:
+            raise ValueError(f"batch_size {B} must divide over the 'data' "
+                             f"mesh axis ({mesh.n_data})")
+        if mesh.device.type != self.device.type or (
+                self.device.index is not None
+                and mesh.device != self.device):
+            raise ValueError(f"the trainer's device {self.device} is not "
+                             f"its mesh's ({mesh.device})")
+        self.device = mesh.device
 
-    def train_step(self, batch, anchors, keep_mask=None):
-        """One optimizer step on self.params; returns (loss, logits)."""
-        loss, logits, self.state = train_step(
-            self.model, self.tx, self.params, self.opt_state, self.state,
-            batch, anchors, keep_mask)
-        return loss, logits
+    # ---------------------------------------------------------------- steps
 
     @torch.no_grad()
     def eval_step(self, batch, anchors, cc_tables):
-        logits, _ = self.model(self.params, self.state, batch, anchors,
+        """(loss, logits) of a whole batch; on a mesh each rank runs its
+        rows and the logits are gathered to every rank."""
+        local = batch if self.mesh is None else MX.shard_batch(batch,
+                                                                self.mesh)
+        logits, _ = self.model(self.params, self.state, local, anchors,
                                train=False, cc_tables=cc_tables)
+        if self.mesh is not None:
+            logits = MX.all_gather_rows(logits, self.mesh)
         return self.model.loss_fn(logits, batch["label"], batch["valid"]), \
             logits
 
@@ -338,7 +391,8 @@ class Trainer:
     def evaluate(self, data, anchors, split: str = "val") -> Dict[str, Any]:
         """Run the eval loop and aggregate metrics with the reference's key
         names (reference: SubGNN.py:408-504). `anchors`: the split's host
-        anchor arrays."""
+        anchor arrays. On a mesh every rank takes part and gets the same
+        metrics (`eval_step`)."""
         hp, dev = self.hp, self.device
         compact = self._use_compact(data)
         anchors_dev = device_batch(anchors, dev)
@@ -464,6 +518,8 @@ class Trainer:
         if self.ckpt:
             self.ckpt.kept = []
         generator = torch.Generator(device=dev).manual_seed(seed)
+        mesh = self.mesh
+        lead = mesh is None or mesh.lead
         resume, self._resume = self._resume, None
         if resume is None:
             self.params = copy_tree(params, dev)
@@ -483,8 +539,13 @@ class Trainer:
                         "the checkpoint's dropout generator state was saved "
                         f"on another device type than {dev.type}")
                 generator.set_state(rng_state)
-        builder = PlanBuilder(self.params["node_embed"].shape[0])
-        keep_mask = generator_keep_mask(generator)
+        rows = self.params["node_embed"].shape[0]
+        if mesh is not None and rows % mesh.n_node:
+            raise ValueError(f"{rows} table rows must divide over the "
+                             f"'node' mesh axis ({mesh.n_node})")
+        builder = PlanBuilder(rows)
+        keep_mask = generator_keep_mask(
+            generator, None if mesh is None else (mesh.n_data, mesh.rank))
         rng_np = np.random.default_rng(seed)
         n = len(train_data)
         drop_last = hp.batch_size <= n
@@ -525,6 +586,8 @@ class Trainer:
                                         anchors_by_split["train"])
                            if prefetch and epoch + 1 < hp.max_epochs
                            else None)
+                if mesh is not None:
+                    MX.all_reduce_sum_([losses], mesh)
                 train_losses = losses.cpu().double().tolist()
             else:
                 train_losses = self._stream_epoch(
@@ -551,7 +614,7 @@ class Trainer:
                     self.tx.host_state(self.opt_state),
                     global_step=self.global_step,
                     rng_state=generator.get_state().numpy())
-            if log_fn:
+            if log_fn and lead:
                 log_fn(f"epoch {epoch}: "
                        f"train_loss={val_metrics['train_loss']:.4f} "
                        f"val_micro_f1={val_metrics['val_micro_f1']:.4f} "
@@ -586,37 +649,51 @@ class Trainer:
 
     def _stream_epoch(self, data, anchors_np, anchors_dev, builder, rng_np,
                       drop_last, compact, keep_mask) -> List[float]:
-        """One streaming epoch: a host batch per step; the step losses."""
-        hp, dev = self.hp, self.device
+        """One streaming epoch: a host batch per step (this rank's rows of
+        it on a mesh, with its own plans); the step losses (summed over
+        the ranks once, at the end)."""
+        hp, dev, mesh = self.hp, self.device, self.mesh
         n = len(data)
         order = self._epoch_order(n, hp.batch_size, rng_np, drop_last)
         losses = []
         for i, idx in enumerate([] if order is None else order):
             valid = np.arange(i * hp.batch_size, (i + 1) * hp.batch_size) < n
             batch = _host_batch(data, idx, valid, include_np_sim=not compact)
-            batch.update(batch_plans(builder, hp, batch["cc_ids"],
-                                     anchors_np, idx))
             if compact:
                 batch.update(compact_sims_for_batch(data.NP_sim, anchors_np,
                                                     hp, idx))
+            n_valid = None
+            if mesh is not None:
+                n_valid = int(valid.sum())
+                batch = MX.shard_batch(batch, mesh)
+            batch.update(batch_plans(builder, hp, batch["cc_ids"],
+                                     anchors_np, batch["subgraph_idx"]))
             batch = device_batch(batch, dev)
             if hp.debug_mode:
-                loss = self._debug_step(batch, anchors_dev, keep_mask)
+                loss = self._debug_step(batch, anchors_dev, keep_mask,
+                                        n_valid)
             else:
-                loss, _ = self.train_step(batch, anchors_dev, keep_mask)
+                loss, _, self.state = train_step(
+                    self.model, self.tx, self.params, self.opt_state,
+                    self.state, batch, anchors_dev, keep_mask, mesh, n_valid)
             losses.append(float(loss))
             self.global_step += 1
+        if mesh is not None and losses:
+            summed = torch.tensor(losses, device=dev)
+            MX.all_reduce_sum_([summed], mesh)
+            losses = summed.cpu().double().tolist()
         return losses
 
-    def _debug_step(self, batch, anchors, keep_mask):
+    def _debug_step(self, batch, anchors, keep_mask, n_valid=None):
         """A debug_mode step (JAX loop.py:94-97, 116-117): the global L2 norm
-        of the raw gradients is recorded, and a non-finite loss or gradient
-        raises FloatingPointError before the update (the counterpart of
+        of the raw gradients (on a mesh, of their sum over the ranks) is
+        recorded, and a non-finite loss or gradient raises
+        FloatingPointError before the update (the counterpart of
         jax_debug_nans). The norm covers the trainable leaves (a frozen
         table gets no gradient here; the JAX norm includes its)."""
         loss, _, new_state, grads = loss_and_grads(
             self.model, self.tx, self.params, self.state, batch, anchors,
-            keep_mask)
+            keep_mask, self.mesh, n_valid)
         value, norm = float(loss), float(global_norm(grads))
         if not (math.isfinite(value) and math.isfinite(norm)):
             raise FloatingPointError(
@@ -639,7 +716,9 @@ class Trainer:
         Model state stays fixed, the caller's trees are not updated, and
         the frozen table gets no update (as make_optimizer). The batches
         carry no gather plans (as the JAX sweep's), so the table gradient
-        is autograd's index backward, not the plan kernel."""
+        is autograd's index backward, not the plan kernel. Like the JAX
+        sweep it has no mesh branch: on a mesh every rank runs the whole
+        sweep alone and finds the same lr."""
         hp, dev = self.hp, self.device
         rng_np = np.random.default_rng(seed)
         lrs = np.geomspace(min_lr, max_lr, num_steps)
@@ -759,18 +838,31 @@ class _FusedRun:
     """The device side of one fused fit (subgnn_tpu/train/loop.py:178-264,
     473-504, 548-628): both splits resident, anchors in static buffers,
     and a train and an eval StepGraph fed by copies into their static
-    buffers."""
+    buffers. On a mesh the splits are resident whole on every rank (JAX's
+    split_pspecs replicate them at n_node = 1); a train step takes the
+    rank's columns of the epoch order, with the gradients' all-reduce
+    inside its graph, and an eval step runs the rank's rows of the batch
+    and gathers the logits inside its graph."""
 
     def __init__(self, trainer: "Trainer", train_data, val_data,
                  anchors_by_split, compact: bool,
                  generator: torch.Generator, builder: PlanBuilder,
                  rng_np: np.random.Generator):
-        hp, dev = trainer.hp, trainer.device
-        self.tr, self.hp, self.device = trainer, hp, dev
+        hp, dev, mesh = trainer.hp, trainer.device, trainer.mesh
+        if mesh is not None and dev.type == "cuda" \
+                and mesh.backend != "nccl":
+            raise ValueError(
+                f"a fused fit on {dev} captures the gradients' all-reduce "
+                f"in a CUDA graph, which the {mesh.backend!r} backend cannot "
+                "be captured in: use NCCL, or a streaming fit (debug_mode)")
+        self.tr, self.hp, self.device, self.mesh = trainer, hp, dev, mesh
+        # this rank's columns of a (n_batches, B) order
+        self.cols = slice(None) if mesh is None else mesh.rows(hp.batch_size)
         self.train_data, self.val_data = train_data, val_data
         self.compact, self.builder, self.rng_np = compact, builder, rng_np
         self.generator = generator
-        self.keep_mask = generator_keep_mask(generator)
+        self.keep_mask = generator_keep_mask(
+            generator, None if mesh is None else (mesh.n_data, mesh.rank))
         self.train_arrays = Trainer._device_split(train_data, dev,
                                                   not compact)
         self.val_arrays = Trainer._device_split(val_data, dev, not compact)
@@ -813,13 +905,15 @@ class _FusedRun:
 
     def schedule(self, order: np.ndarray, anchors_np):
         """An epoch's order, stacked gather plans and compact sims (host
-        numpy work), then one copy of each to the device."""
+        numpy work, for this rank's columns of the order), then one copy of
+        each to the device."""
+        cols = order[:, self.cols]
         extras = epoch_plans(self.builder, self.hp, self.train_data.cc_ids,
-                             anchors_np, order)
+                             anchors_np, cols)
         if self.compact:
             extras.update(epoch_compact_sims(self.train_data.NP_sim,
-                                             anchors_np, self.hp, order))
-        return (order, self._put(order.astype(np.int64)),
+                                             anchors_np, self.hp, cols))
+        return (order, self._put(cols.astype(np.int64)),
                 {k: self._put(v) for k, v in extras.items()})
 
     def _val_extras(self, anchors_np):
@@ -827,7 +921,7 @@ class _FusedRun:
             return {}
         return {k: self._put(v) for k, v in epoch_compact_sims(
             self.val_data.NP_sim, anchors_np, self.hp,
-            self.val_order_np).items()}
+            self.val_order_np[:, self.cols]).items()}
 
     def set_anchors(self, anchors_by_split) -> None:
         """New anchors into the static anchor buffers, which the step
@@ -866,8 +960,11 @@ class _FusedRun:
 
     def _build_train(self, extras) -> None:
         tr, dev, B = self.tr, self.device, self.hp.batch_size
-        buf = {"idx": torch.zeros(B, dtype=torch.int64, device=dev),
-               "valid": torch.ones(B, dtype=torch.bool, device=dev),
+        b = B if self.mesh is None else B // self.mesh.n_data
+        # every row of a fused batch is valid: the whole batch's count
+        n_valid = None if self.mesh is None else B
+        buf = {"idx": torch.zeros(b, dtype=torch.int64, device=dev),
+               "valid": torch.ones(b, dtype=torch.bool, device=dev),
                "loss": torch.zeros((), device=dev),
                "extras": {k: _slot(v) for k, v in extras.items()}}
 
@@ -877,7 +974,7 @@ class _FusedRun:
             batch.update(buf["extras"])
             loss, _, new_state = train_step(
                 tr.model, tr.tx, tr.params, tr.opt_state, tr.state, batch,
-                self.anchors["train"], self.keep_mask)
+                self.anchors["train"], self.keep_mask, self.mesh, n_valid)
             _copy_into(tr.state, new_state)
             buf["loss"].copy_(loss)
 
@@ -895,14 +992,18 @@ class _FusedRun:
 
         @torch.no_grad()
         def step():
-            batch = Trainer._gather_batch(self.val_arrays, buf["idx"],
-                                          buf["valid"])
+            # the whole batch's order row and mask, this rank's rows of them
+            idx, valid = buf["idx"], buf["valid"]
+            batch = Trainer._gather_batch(self.val_arrays, idx[self.cols],
+                                          valid[self.cols])
             batch.update(buf["extras"])
             logits, _ = tr.model(tr.params, tr.state, batch,
                                  self.anchors["val"], train=False,
                                  cc_tables=self.val_cc)
-            buf["loss"].copy_(tr.model.loss_fn(logits, batch["label"],
-                                               batch["valid"]))
+            if self.mesh is not None:
+                logits = MX.all_gather_rows(logits, self.mesh)
+            buf["loss"].copy_(tr.model.loss_fn(
+                logits, self.val_arrays["label"][idx], valid))
             buf["logits"].copy_(logits)
 
         self.eval_buf, self.eval_graph = buf, self._graph(step)

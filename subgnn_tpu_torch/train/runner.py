@@ -1,14 +1,15 @@
 """End-to-end pipeline: load -> precompute -> anchors -> train -> test
 (`run`), and serving: load -> precompute -> predict.
 
-Port of subgnn_tpu/train/runner.py (SubGNNPipeline) without its mesh and
-profiler: the same files, caches, RNG streams, JSON artifacts and request
-flow, with the model and the structure DTW on a torch device and every BFS
-(the all-pairs matrix, serving's rows on a worker thread) in the C++ host
-library. `run` trains through train/loop.py:Trainer on `split_data`,
-`sample_anchors` and `eval_cc_tables`, with the JAX run's train holdout,
-checkpoint restore, lr_find, per-epoch anchor resampling and resume, and
-tests the best checkpoint.
+Port of subgnn_tpu/train/runner.py (SubGNNPipeline): the same files,
+caches, RNG streams, JSON artifacts and request flow, with the model and the
+structure DTW on a torch device and every BFS (the all-pairs matrix,
+serving's rows on a worker thread) in the C++ host library. `run` trains
+through train/loop.py:Trainer on `split_data`, `sample_anchors` and
+`eval_cc_tables`, with the JAX run's train holdout, checkpoint restore,
+lr_find, per-epoch anchor resampling and resume, and tests the best
+checkpoint; on the data axis of a mesh when the hparams ask for one
+(mesh_data_axis, parallel/mesh.py), one process a rank.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ..data.subgraphs import (MultiLabelBinarizer, read_subgraphs,
                               reindex_subgraphs)
 from ..device import resolve_device
 from ..models.subgnn import CHANNEL_CC_KEYS, SubGNNModel
+from ..parallel import mesh as MX
 from ..precompute.border import border_sets_from_rows, compute_border_sets
 from ..precompute.shortest_paths import (shortest_path_matrix,
                                          shortest_path_rows)
@@ -138,7 +140,7 @@ class SubGNNPipeline:
 
     # ------------------------------------------------------------ precompute
 
-    def precompute(self):
+    def precompute(self, recompute: Optional[bool] = None):
         """Border sets, N/P shortest-path sims, the structure anchor pool and
         its walks, and the structure DTW sims of every split, cached under
         <task>/similarities with the JAX package's (and the reference's)
@@ -147,12 +149,14 @@ class SubGNNPipeline:
         library, hp.n_processes threads) and the NP-sim CC-min run on the
         host; the DTW kernel runs once per split and side on the
         pipeline's device. Each stage's seconds go to `precompute_timings`
-        (and are printed when over 5 s)."""
+        (and are printed when over 5 s). `recompute`: ignore the caches
+        (default hp.compute_similarities)."""
         if not self._loaded:
             raise RuntimeError("call load() first")
         rc, hp = self.rc, self.hp
         sim_dir = rc.similarities_path()
-        recompute = hp.compute_similarities
+        if recompute is None:
+            recompute = hp.compute_similarities
         if hp.subset_data:
             # truncated splits: never read or write the full-data caches
             def cache(path, fn, recompute=False):
@@ -375,11 +379,19 @@ class SubGNNPipeline:
             resume_path: Optional[str | Path] = None,
             profile_dir: Optional[str | Path] = None,
             metrics_callback=None) -> Dict[str, Any]:
-        """Full train + test cycle (subgnn_tpu/train/runner.py:381-546
-        without its mesh). Under results_dir it writes the
+        """Full train + test cycle (subgnn_tpu/train/runner.py:381-546).
+        Under results_dir it writes the
         reference's JSON artifacts (hyperparams.json, trainer_kwargs.json,
         final_metric_scores.json, test_results.json), TensorBoard scalars
         (tb/) and the top-k checkpoints (checkpoints/).
+
+        On a mesh (the hparams' mesh_data_axis > 1, one process a rank of
+        the default process group: parallel/mesh.py) every rank runs this
+        whole method. Rank 0 alone precomputes, while the others wait and
+        then read its caches (the JAX run spreads its DTW and NP sims over
+        the mesh: ROADMAP Queue 1 item 11), and rank 0 alone writes files;
+        every rank trains its rows of each batch and tests the best
+        checkpoint.
 
         restore_path: filtered load of a checkpoint's weights and model
         state (the JAX package's or the port's), then train max_epochs from
@@ -393,8 +405,16 @@ class SubGNNPipeline:
         "best_monitor"}."""
         hp = self.hp
         seed = hp.seed if seed is None else seed
+        mesh = MX.mesh_from_hparams(hp, device=self.device)
+        lead = mesh is None or mesh.lead
         self.load()
-        self.precompute()
+        if lead:
+            self.precompute()
+        if mesh is not None:
+            # the other ranks read rank 0's caches (never write them)
+            torch.distributed.barrier(group=mesh.group)
+            if not lead:
+                self.precompute(recompute=False)
         anchors = self.sample_anchors(seed)
         model, params, state = self.build_model(seed)
         eval_cc = self.eval_cc_tables()
@@ -446,8 +466,10 @@ class SubGNNPipeline:
                           monitor=self.rc.monitor_metric,
                           checkpoint_k=max(self.checkpoint_k, 1),
                           eval_cc_tables=eval_cc, tb_dir=tb_dir,
-                          device=self.device)
-        if self.results_dir:
+                          device=self.device, mesh=mesh)
+        devices = ([str(self.device)] if mesh is None
+                   else MX.all_gather_objects(str(mesh.device), mesh))
+        if self.results_dir and lead:
             dump_json(self.results_dir / "hyperparams.json", hp.to_dict())
             # the reference's trainer-kwargs sidecar (train_config.py:
             # 179-183), with the JAX run's keys
@@ -458,8 +480,8 @@ class SubGNNPipeline:
                 "progress_bar_refresh_rate":
                     hp.extras.get("progress_bar_refresh_rate", 5),
                 "gradient_clip_val": hp.grad_clip,
-                "devices": [str(self.device)],
-                "mesh_axes": None,
+                "devices": devices,
+                "mesh_axes": None if mesh is None else mesh.shape,
                 "monitor": self.rc.monitor_metric,
                 "checkpoint_k": self.checkpoint_k,
             }
@@ -473,7 +495,7 @@ class SubGNNPipeline:
             t0 = time.time()
             found = trainer.lr_find(params, state, train_data, anchors,
                                     seed=seed)
-            if log_fn:
+            if log_fn and lead:
                 log_fn(f"auto_lr_find: {hp.learning_rate:.2e} -> "
                        f"{found:.2e} ({time.time() - t0:.2f}s)")
             self.hp = hp = hp.replace(learning_rate=found)
@@ -492,7 +514,7 @@ class SubGNNPipeline:
         start_epoch = 0
         if resume_path:
             start_epoch = trainer.resume_from(resume_path)
-            if log_fn:
+            if log_fn and lead:
                 log_fn(f"resuming from {resume_path} at epoch {start_epoch}")
 
         self.trainer = trainer
@@ -506,7 +528,7 @@ class SubGNNPipeline:
         except Exception:
             # keep what was learned before re-raising (a pruned trial still
             # writes final_metric_scores, as the reference's pruner)
-            if self.results_dir and trainer.metric_scores:
+            if self.results_dir and lead and trainer.metric_scores:
                 dump_json(self.results_dir / "final_metric_scores.json",
                           dict(trainer.metric_scores[-1]))
             raise
@@ -514,20 +536,23 @@ class SubGNNPipeline:
             if trainer.tb:
                 trainer.tb.close()
 
-        if self.results_dir and trainer.metric_scores:
+        if self.results_dir and lead and trainer.metric_scores:
             dump_json(self.results_dir / "final_metric_scores.json",
                       dict(trainer.metric_scores[-1]))
 
         # test with the best checkpoint (reference: train.py:389-409), its
-        # model state too, so batch-norm running stats match its weights
-        if trainer.ckpt and trainer.ckpt.best_path:
-            best = trainer.ckpt.best_path
+        # model state too, so batch-norm running stats match its weights;
+        # on a mesh, rank 0's (it wrote it before it sends the path)
+        best = trainer.ckpt.best_path if trainer.ckpt else None
+        if mesh is not None:
+            best = MX.broadcast_object(best, mesh.group)
+        if best:
             payload = load_checkpoint(best)
             trainer.params = load_params_filtered(best, trainer.params,
                                                   payload=payload)
             if payload.get("state") is not None:
                 trainer.state = tree_from_numpy(payload["state"],
-                                                self.device)
+                                                trainer.device)
         test_metrics = trainer.evaluate(self.split_data("test"),
                                         anchors["test"], "test")
         holdout_metrics = None
@@ -535,7 +560,7 @@ class SubGNNPipeline:
             # the same restored best-val checkpoint as test
             holdout_metrics = trainer.evaluate(holdout_data,
                                                anchors["holdout"], "holdout")
-        if self.results_dir:
+        if self.results_dir and lead:
             dump_json(self.results_dir / "test_results.json", test_metrics)
         return {"val": (trainer.metric_scores[-1] if trainer.metric_scores
                         else {}),

@@ -117,13 +117,75 @@ def test_dtw_kernel_rejects_what_it_does_not_take(cuda):
     cl = torch.zeros(4, dtype=torch.int32, device=cuda)
     got = kdtw.dtw_distance_grouped(cs, cl, cs, cl, 1, 4, 4)
     assert got.shape == (16,) and (got == 0).all()
+    # anchors past the shared-memory strip bound are taken, not refused
     long_anchors = torch.zeros(4, kdtw.MAX_STRIP_LA + 1, device=cuda)
-    with pytest.raises(ValueError, match=str(kdtw.MAX_STRIP_LA)):
-        kdtw.dtw_distance_grouped(cs, cl, long_anchors, cl, 1, 4, 4)
+    got = kdtw.dtw_distance_grouped(cs, cl, long_anchors, cl, 1, 4, 4)
+    assert got.shape == (16,) and (got == 0).all()
     with pytest.raises(ValueError):
         kdtw.dtw_distance_grouped(cs[:, :8], cl.cpu(), cs[:, :8], cl, 1, 4, 4)
     with pytest.raises(TypeError):
         kdtw.dtw_distance_grouped(cs, cl.long(), cs, cl, 1, 4, 4)
+
+
+def _long_anchor_case(La, anchor_lens, comp_lens, Lc=300, seed=7):
+    """(comp_seqs, comp_lens, anchor_seqs, anchor_lens) numpy, one group:
+    sorted degree-like values, anchors La wide."""
+    rng = np.random.default_rng(seed)
+
+    def seqs(lens, width):
+        out = np.zeros((len(lens), width), np.float32)
+        for i, n in enumerate(lens):
+            out[i, :n] = np.sort(rng.integers(0, 40, n))
+        return out, np.asarray(lens, np.int32)
+    return (*seqs(comp_lens, Lc), *seqs(anchor_lens, La))
+
+
+@pytest.mark.gpu
+def test_dtw_kernel_long_anchors_past_the_shared_strip(cuda):
+    """La = 60,000 > MAX_STRIP_LA: comps of up to 64 in registers walking
+    the anchors, longer ones on the warp path with its strip boundary in
+    global scratch; held against the plain version."""
+    La = 60_000
+    assert La > kdtw.MAX_STRIP_LA
+    cs, cl, as_, al = _long_anchor_case(La, [La, 59_000, 5],
+                                        [300, 40, 0, 120, 64, 65])
+    args = [torch.as_tensor(x, device=cuda) for x in (cs, cl, as_, al)]
+    before = kdtw.dtw_distance_grouped.launches
+    got = kdtw.dtw_distance_grouped(*args, 1, 6, 3)
+    assert kdtw.dtw_distance_grouped.launches == before + 1
+    ref = kdtw.dtw_distance_grouped_torch(*args, 1, 6, 3)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert (got.cpu().numpy().reshape(6, 3)[2] == 0).all()   # empty comp
+
+
+def test_dtw_wrapper_takes_anchors_past_the_strip_bound_on_the_cpu():
+    """A CPU tensor takes the plain version at any La: 60,000-wide anchors
+    give the distances of the same sequences at their own width."""
+    La = 60_000
+    cs, cl, as_, al = _long_anchor_case(La, [900, 31, 0, 5], [30, 0, 7],
+                                        Lc=30)
+    wide = kdtw.dtw_distance_grouped(*map(torch.as_tensor,
+                                          (cs, cl, as_, al)), 1, 3, 4)
+    narrow = kdtw.dtw_distance_grouped_torch(
+        *map(torch.as_tensor, (cs, cl, np.ascontiguousarray(as_[:, :900]),
+                               al)), 1, 3, 4)
+    assert torch.equal(wide, narrow)
+    assert (wide.reshape(3, 4)[1] == 0).all() and \
+        (wide.reshape(3, 4)[:, 2] == 0).all()
+    assert (wide.reshape(3, 4)[[0, 2]][:, [0, 1, 3]] > 0).all()
+
+
+def test_dtw_strip_scratch_warps():
+    assert kdtw.strip_scratch_warps(kdtw.MAX_STRIP_LA, 10_000) == 0
+    La = kdtw.MAX_STRIP_LA + 1
+    assert kdtw.strip_scratch_warps(La, 3) == 8          # at least 8
+    assert kdtw.strip_scratch_warps(La, 10_000) == kdtw.STRIP_WARPS
+    assert kdtw.STRIP_WARPS % 8 == 0
+    for La in (60_000, 1_000_000, 10_000_000):
+        warps = kdtw.strip_scratch_warps(La, 10 ** 9)
+        assert warps % 8 == 0 and warps >= 8
+        assert warps * La * 4 <= max(kdtw.STRIP_SCRATCH_BYTES, 8 * La * 4)
 
 
 def test_dtw_kernel_block_warps_depend_on_grid_size_alone():
