@@ -81,6 +81,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 launched twice a step on each; then a fused fit on those
                 ranks refused before its first step (gloo's all-reduce
                 cannot be captured), naming the backend;
+  4d. node    — the node axis of the training mesh (the table, Adam's
+                moments of it and the non-compact NP sims sharded over
+                mesh_node_axis ranks): (a) in this process, segment_matmul
+                on each shard's plan (make_gather_plan's row_range) at the
+                bench's four plans for n_node 2 and 4, each against its
+                plain version at segment_check's tolerance, the shards
+                concatenated against the whole table's kernel output at
+                the same tolerance (bits equal printed), each shard's
+                device_ms, slots and byte bound printed; (b) two gloo ranks
+                of a (1, 2) mesh spawned on this card, streaming
+                (debug_mode) fits of 2 epochs on phase 4's task at 4b's
+                widths with compact sims and with the NP sims sharded,
+                against the same fits in this process: train/val losses
+                within rel 1e-4, each rank's table rows within 1e-5 of the
+                one-process table's, the replicated leaves bit-equal across
+                the ranks, segment_matmul twice a step on each rank, and the
+                node-group sums' bytes exactly 4 x (D x the ids gathered +
+                the NP-sim values gathered) (printed beside an all-gather of
+                the table); a fused fit on those ranks refused; (c) the
+                device bytes of the table and its moments, and of a batch's
+                NP sims, at (1, 1) and on a rank of (1, 2): half;
   5. run      — whole training runs through the port's CLIs, in-process
                 (main() with sys.argv set) on -device cuda, at the flagship
                 widths (lin_dropout 0.1, anchor resampling) on a fresh task
@@ -156,7 +177,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 with the L2 flushed before each call) and `span_ms` (first
                 start to last end of those activities);
                 subgnn_tpu_torch/kernel_times.py has the helpers.
-Each path's launch counts are zeroed just before it and read just after:
+Each path's launch counts are zeroed just before it and read just after
+(the node axis's in each spawned rank, in the segment_matmul record's
+`node_axis`):
 the DTW record's launches are the 4 serving requests', segment_matmul's are
 Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset,
 run and prepare phases' runs are counted on their own, for their checks;
@@ -311,20 +334,31 @@ def dtw_inputs(graph, cc_ids, pool_cache):
             2, n * C, ai.shape[0])
 
 
-def segment_check(E, g, ids, plan, out_rows):
+def segment_tol(g, ids, ref, out_rows, lo=0):
+    """segment_check's tolerance per output element: SEG_REL_TOL x the sum
+    of |g| over the row's slots (index_add_ of |g|), plus one bf16 ulp of
+    the plain value `ref` for bf16; rows [lo, lo + out_rows) of the table
+    (a node-axis shard's)."""
+    import torch
+    local = ids.reshape(-1) - lo
+    keep = (local >= 0) & (local < out_rows)
+    absum = torch.zeros(out_rows, g.shape[1], device=g.device).index_add_(
+        0, local[keep], g.float().abs()[keep])
+    tol = SEG_REL_TOL * absum
+    if g.dtype == torch.bfloat16:
+        tol = tol + ref.float().abs() * BF16_ULP
+    return tol
+
+
+def segment_check(E, g, ids, plan, out_rows, lo=0):
     """Kernel vs plain on the card: (max abs err, within tolerance and the
-    same bits on a second run). The tolerance per row is SEG_REL_TOL x the
-    sum of |g| over the row's slots (index_add_ of |g|), plus one bf16 ulp
-    of the plain value for bf16."""
+    same bits on a second run), at segment_tol's tolerance. `lo`: the first
+    table row of a shard plan (make_gather_plan's row_range)."""
     import torch
     got = E.segment_matmul(g, plan, out_rows)
     again = E.segment_matmul(g, plan, out_rows)
     ref = E.segment_matmul_torch(g, plan, out_rows)
-    absum = torch.zeros(out_rows, g.shape[1], device=g.device).index_add_(
-        0, ids.reshape(-1), g.float().abs())
-    tol = SEG_REL_TOL * absum
-    if g.dtype == torch.bfloat16:
-        tol = tol + ref.float().abs() * BF16_ULP
+    tol = segment_tol(g, ids, ref, out_rows, lo)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     return (float(err.max()),
@@ -801,6 +835,261 @@ def mesh_phase(pipe, seed: int, fused_runs, root: Path):
           "disagree with one process")
     check(same_params, "mesh phase (b): the two ranks' parameters differ")
     print(f"[mesh] phase seconds {time.perf_counter() - t_phase:.2f}")
+
+
+
+NODE_REL_TOL = 1e-4         # 4d (b): losses, two node ranks vs one process
+NODE_SHARD_ATOL = 1e-5      # 4d (b): a rank's table rows vs one process's
+NODE_SHARDS = (2, 4)        # 4d (a): n_node of the shard plans
+NODE_TRACED_CALLS = 10      # 4d (a): traced calls a shard's device_ms
+
+
+def node_plan_phase(E, benches, gen, dev):
+    """4d (a): segment_matmul on each node shard's plan (make_gather_plan's
+    row_range) at the bench's four plans, against its plain version, and
+    the shards together against the whole table's kernel output. Returns
+    (max abs err, {plan: [[device_ms of each shard] for each n_node]})."""
+    import torch
+    from subgnn_tpu_torch.kernel_times import (bench_plans, device_times,
+                                               segment_bound_ms)
+    t0 = time.perf_counter()
+    worst, times = 0.0, {}
+    for dt, (_, _, params_b, _, batch_b, anchors_b) in benches.items():
+        rows = params_b["node_embed"].shape[0]
+        tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+        for name, ids, plan in bench_plans(batch_b, anchors_b):
+            ids_np = ids.cpu().numpy()
+            g = torch.randn(ids.numel(), 128, generator=gen,
+                            device=dev).to(tdt)
+            whole = E.segment_matmul(g, plan, rows)
+            tol = segment_tol(g, ids, E.segment_matmul_torch(g, plan, rows),
+                              rows)
+            key = f"{dt}_{name}"
+            times[key] = []
+            for n_node in NODE_SHARDS:
+                n = rows // n_node
+                parts, shard_ms = [], []
+                for k in range(n_node):
+                    lo = k * n
+                    splan = E.make_gather_plan(
+                        ids_np, rows, row_range=(lo, lo + n)).to(dev)
+                    err, ok = segment_check(E, g, ids, splan, n, lo)
+                    worst = max(worst, err)
+                    check(ok, f"node phase (a): segment_matmul disagrees "
+                              f"with its plain version at the {key} plan's "
+                              f"shard {k} of {n_node}")
+                    parts.append(E.segment_matmul(g, splan, n))
+                    dev_t = device_times(
+                        lambda: E.segment_matmul(g, splan, n),
+                        NODE_TRACED_CALLS)
+                    slots = int((splan.local < E.TABLE_BLOCK).sum())
+                    bound = segment_bound_ms(g, splan, n)
+                    shard_ms.append(dev_t["device_ms"])
+                    print(f"[node] (a) segment_matmul {key} shard {k} of "
+                          f"{n_node} (rows {lo}-{lo + n}, slots {slots} of "
+                          f"{ids.numel()}, tiles {splan.pos.shape[0]}): "
+                          f"max_abs_err {err!r}, device_ms "
+                          f"{dev_t['device_ms']!r}, bound {bound!r} ms "
+                          f"(bytes)")
+                joined = torch.cat(parts)
+                diff = (joined.float() - whole.float()).abs()
+                same = torch.equal(joined, whole)
+                print(f"[node] (a) {key} at n_node {n_node}: shards "
+                      f"concatenated vs the whole table's kernel output max "
+                      f"abs diff {float(diff.max())!r}, bits equal {same}")
+                check(bool((diff <= tol).all()), f"node phase (a): the "
+                      f"{key} shards at n_node {n_node} disagree with the "
+                      f"whole table's gradient")
+                times[key].append(shard_ms)
+    print(f"[node] (a) {time.perf_counter() - t0:.2f}s")
+    return worst, times
+
+
+def node_rank(rank, store, rc, hp, seed, out):
+    """4d (b): one of two gloo ranks of a (1, 2) mesh on cuda:0 (spawned),
+    streaming fits with compact and with sharded NP sims on phase 4's task
+    read from its caches; writes each fit's metrics, table shard,
+    replicated leaves, counts and what it held to <out>.<rank>.pt."""
+    sys.path.insert(0, str(HERE))
+    import torch
+    import torch.distributed as dist
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.train.checkpoint import to_numpy
+    from subgnn_tpu_torch.train.loop import Trainer
+    from subgnn_tpu_torch.train.runner import SubGNNPipeline
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = MX.make_device_mesh(1, 2, device="cuda:0")
+        pipe = SubGNNPipeline(rc, hp, device="cuda:0").load().precompute(
+            recompute=False)
+        result = {}
+        for compact in (True, False):
+            model, params, state = pipe.build_model(seed)
+            trainer = Trainer(model, hp, eval_cc_tables=pipe.eval_cc_tables(),
+                              device="cuda:0", mesh=mesh)
+            trainer.compact_sims = compact
+            E.segment_matmul.launches = 0
+            MX.reset_counts()
+            t0 = time.perf_counter()
+            trainer.fit(params, state, pipe.split_data("train"),
+                        pipe.split_data("val"), pipe.sample_anchors(seed),
+                        seed=seed, log_fn=None)
+            secs = time.perf_counter() - t0
+            result[compact] = {
+                "metrics": trainer.metric_scores,
+                "shard": to_numpy(trainer.params["node_embed"]),
+                "rows": trainer._rows,
+                "replicated": to_numpy({k: v for k, v in
+                                        trainer.params.items()
+                                        if k != "node_embed"}),
+                "launches": E.segment_matmul.launches,
+                "steps": trainer.global_step, "fused": trainer.fused,
+                "secs": secs, "held": trainer.held,
+                "node_calls": MX.node_sum.calls,
+                "node_bytes": MX.node_sum.bytes,
+                "reduce_bytes": MX.all_reduce_sum_.bytes}
+        fused = Trainer(model, hp.replace(debug_mode=False),
+                        device="cuda:0", mesh=mesh)
+        try:
+            fused.fit(params, state, pipe.split_data("train"),
+                      pipe.split_data("val"), pipe.sample_anchors(seed),
+                      seed=seed, log_fn=None)
+            result["fused_refused"] = ""
+        except ValueError as e:
+            result["fused_refused"] = str(e)
+        result["fused_steps"] = fused.global_step
+        torch.save(result, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def held_bytes(held, compact):
+    """(table + Adam's moments of it, NP sims) bytes a fit held."""
+    table = sum(held[k][1] for k in ("node_embed", "mu", "nu"))
+    return table, (None if compact else held["NP_sim"][1])
+
+
+def node_phase(pipe, seed: int, root: Path, benches, gen, dev):
+    """Phase 4d: the node axis of the training mesh. (a) segment_matmul on
+    node shard plans in this process; (b) two gloo ranks of a (1, 2) mesh
+    on this card against this process; (c) what a rank holds."""
+    import torch
+    import torch.multiprocessing as mp
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.checkpoint import to_numpy
+    from subgnn_tpu_torch.train.loop import (Trainer, node_gathers_per_step,
+                                             tree_leaves)
+
+    t_phase = time.perf_counter()
+    err, shard_ms = node_plan_phase(E, benches, gen, dev)
+
+    # (b) the same streaming (debug_mode) fits in this process and on two
+    # gloo ranks of a (1, 2) mesh on this card
+    hp = pipe.hp.replace(max_epochs=2, lin_dropout=0.0, debug_mode=True)
+    anchors = pipe.sample_anchors(seed)
+    train, val = pipe.split_data("train"), pipe.split_data("val")
+    one = {}
+    for compact in (True, False):
+        model, params, state = pipe.build_model(seed)
+        model.hp = hp
+        trainer = Trainer(model, hp, eval_cc_tables=pipe.eval_cc_tables(),
+                          device=pipe.device)
+        trainer.compact_sims = compact
+        t0 = time.perf_counter()
+        trainer.fit(params, state, train, val, anchors, seed=seed,
+                    log_fn=None)
+        one[compact] = (trainer, time.perf_counter() - t0)
+    out = root / "node_gloo"
+    t0 = time.perf_counter()
+    mp.start_processes(node_rank, args=(str(root / "node_store"), pipe.rc,
+                                        hp, seed, str(out)),
+                       nprocs=2, start_method="spawn")
+    spawn_secs = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}.pt", weights_only=False)
+             for r in range(2)]
+    D = hp.node_embed_size
+    launches = {}
+    for compact in (True, False):
+        tr, one_secs = one[compact]
+        tag = "compact sims" if compact else "NP sims sharded"
+        res = [r[compact] for r in ranks]
+        pair = [(a[k], b[k]) for a, b in zip(res[0]["metrics"],
+                                             tr.metric_scores)
+                for k in ("train_loss", "val_loss")]
+        worst = max(rel_diff(a, b) for a, b in pair)
+        whole = to_numpy(tr.params)
+        shard_diff = max(float(np.abs(
+            r["shard"] - whole["node_embed"][r["rows"][0]:r["rows"][1]]
+        ).max()) for r in res)
+        same_leaves = all(np.array_equal(a, b) for a, b in zip(
+            tree_leaves(res[0]["replicated"]),
+            tree_leaves(res[1]["replicated"])))
+        # the node-group sums carry every forward's gathered rows and, with
+        # the NP sims sharded, its NP-sim values: train steps, val batches
+        ids_t, cols_t = node_gathers_per_step(
+            hp, hp.batch_size, *train.cc_ids.shape[1:], compact)
+        ids_v, cols_v = node_gathers_per_step(
+            hp, hp.batch_size, *val.cc_ids.shape[1:], compact)
+        n_val = -(-len(val) // hp.batch_size) * len(res[0]["metrics"])
+        for r, x in enumerate(res):
+            steps = x["steps"]
+            want = 4 * (steps * (ids_t * D + cols_t)
+                        + n_val * (ids_v * D + cols_v))
+            check(not x["fused"] and x["launches"] == 2 * steps > 0,
+                  f"node phase (b) rank {r} ({tag}): {x['launches']} "
+                  f"segment_matmul launches in {steps} steps")
+            check(x["node_bytes"] == want, f"node phase (b) rank {r} "
+                  f"({tag}): node-group sums of {x['node_bytes']} bytes, "
+                  f"the gathers hold {want}")
+        launches[compact] = [x["launches"] for x in res]
+        table_b, np_b = held_bytes(res[0]["held"], compact)
+        one_table_b, one_np_b = held_bytes(tr.held, compact)
+        steps = res[0]["steps"]
+        print(f"[node] (b) 2 gloo ranks of a (1, 2) mesh on cuda:0, "
+              f"streaming (debug_mode) fit, {tag}: fits "
+              f"{[round(x['secs'], 3) for x in res]}s (one process "
+              f"{one_secs:.2f}s); epoch_time_s rank 0 "
+              f"{[x['epoch_time_s'] for x in res[0]['metrics']]!r}, one "
+              f"process {[x['epoch_time_s'] for x in tr.metric_scores]!r}; "
+              f"segment_matmul launches per rank "
+              f"{launches[compact]} in {steps} steps; node-group sums "
+              f"{res[0]['node_calls']} calls, {res[0]['node_bytes']} bytes "
+              f"(= 4 x (D x ids + NP values) gathered, checked exactly), "
+              f"{(ids_t * D + cols_t) * 4} bytes a train step against "
+              f"{whole['node_embed'].size * 4} for an all-gather of the "
+              f"table; gradient all-reduce bytes {res[0]['reduce_bytes']}; "
+              f"train/val losses vs one process max rel diff {worst!r} (tol "
+              f"{NODE_REL_TOL}); table shards vs the one-process table's "
+              f"rows max abs diff {shard_diff!r} (tol {NODE_SHARD_ATOL}); "
+              f"replicated leaves bit-equal across ranks {same_leaves}")
+        print(f"[node] (c) {tag}: device bytes of the table + Adam's "
+              f"moments of it, (1, 1) {one_table_b} vs (1, 2) a rank "
+              f"{table_b} ({table_b / one_table_b!r})"
+              + ("" if compact else
+                 f"; NP sims of a streaming batch (1, 1) {one_np_b} vs "
+                 f"(1, 2) {np_b} ({np_b / one_np_b!r})"))
+        check(worst <= NODE_REL_TOL, f"node phase (b) ({tag}): two node "
+              "ranks disagree with one process")
+        check(shard_diff <= NODE_SHARD_ATOL, f"node phase (b) ({tag}): a "
+              "rank's table shard differs from the one-process table's rows")
+        check(same_leaves, f"node phase (b) ({tag}): the two ranks' "
+              "replicated leaves differ")
+        check(2 * table_b == one_table_b and (compact or 2 * np_b == one_np_b),
+              f"node phase (c) ({tag}): a rank of (1, 2) does not hold half")
+    for r, res in enumerate(ranks):
+        check("'gloo'" in res["fused_refused"] and res["fused_steps"] == 0,
+              f"node phase (b) rank {r}: a fused fit over gloo on the card "
+              f"was not refused before its first step "
+              f"({res['fused_refused']!r})")
+    print(f"[node] (b) spawn to exit {spawn_secs:.2f}s; a fused fit "
+          f"refused: {ranks[0]['fused_refused']!r}")
+    print(f"[node] phase seconds {time.perf_counter() - t_phase:.2f}")
+    return err, {"launches_per_rank": launches[False],
+                 "shard_device_ms": shard_ms}
 
 
 
@@ -1731,6 +2020,10 @@ def main(argv=None) -> int:
 
         # ------------------------------------------------------- 4c. mesh
         mesh_phase(dpipe, args.seed, fused_runs, root)
+
+        # ------------------------------------------------------- 4d. node
+        err, node = node_phase(dpipe, args.seed, root, benches, gen, dev)
+        seg_err = max(seg_err, err)
         del dpipe
 
         # ---------------------------------------------------------- 5. run
@@ -1930,7 +2223,8 @@ def main(argv=None) -> int:
                                        for k, v in prepare.items()
                                        if isinstance(v, dict)
                                        and "launches" in v},
-                  "prepare_spmm": prepare["spmm"]}
+                  "prepare_spmm": prepare["spmm"],
+                  "node_axis": node}
 
     print(card())
     for record in (dtw_record, seg_record):

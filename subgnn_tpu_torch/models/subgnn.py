@@ -11,6 +11,11 @@ Output layout per layer (reference: SubGNN.py:260-291, order preserved):
   structure    -> [S_in_prop (A_S), S_out_prop (A_S)]
 concatenated after the initial CC embedding (D), masked-summed over CCs,
 then a 3-layer MLP head (SubGNN.py:295-310).
+
+On a mesh with a node axis (parallel/mesh.py) `params["node_embed"]` is
+this rank's rows of the table and `batch["NP_sim"]` its columns; every
+read of either is a masked gather summed over the node group (`_lookup`,
+`_np_columns`), which gives every rank of the group the one-process values.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from torch import nn
 
 from ..config import HParams
 from ..device import resolve_device
-from ..ops.embedding import embedding_gather
+from ..ops.embedding import embedding_gather, shard_gather
+from ..parallel import mesh as MX
 from . import attention as attn
 from .dropout import KeepMask
 from .dropout import dropout as apply_dropout
@@ -154,22 +160,52 @@ class SubGNNModel(nn.Module):
     # ------------------------------------------------------------- embedding
 
     @staticmethod
-    def _table(params):
+    def _table(params, node=None):
         # row 0 is the pad embedding and stays zero (torch padding_idx
-        # semantics, reference SubGNN.py:568)
+        # semantics, reference SubGNN.py:568): on a node axis, in the shard
+        # that holds it
         table = params["node_embed"].clone()
-        table[0] = 0.0
+        if node is None or node.node_index == 0:
+            table[0] = 0.0
         return table
 
-    def initialize_cc_embeddings(self, table, cc_ids, plan=None):
+    @staticmethod
+    def _lookup(table, ids, plan=None, node=None):
+        """table[ids]: through `plan`'s kernel backward when given; on a
+        node axis (`node`, the mesh) from this rank's rows, masked, summed
+        over the node group."""
+        if node is not None:
+            lo = node.node_index * table.shape[0]
+            return MX.node_sum(shard_gather(table, ids, lo, plan), node)
+        if plan is not None:
+            return embedding_gather(table, ids, plan)
+        return table[ids]
+
+    @staticmethod
+    def _np_columns(np_sim, idx, node=None):
+        """np_sim[b, c, idx[b, c, a]] (idx (B, C, A)) or, for a 1-D idx,
+        np_sim[:, :, idx]; idx in [0, n_cols). On a node axis np_sim is this
+        rank's columns: masked, summed over the node group."""
+        if node is None:
+            return (np_sim[:, :, idx] if idx.dim() == 1
+                    else torch.gather(np_sim, 2, idx))
+        w = np_sim.shape[2]
+        local = idx - node.node_index * w
+        inside = (local >= 0) & (local < w)
+        local = torch.where(inside, local, torch.zeros_like(local))
+        if idx.dim() == 1:
+            cols = np_sim[:, :, local].masked_fill(~inside, 0)
+        else:
+            cols = torch.gather(np_sim, 2, local).masked_fill(~inside, 0)
+        return MX.node_sum(cols, node)
+
+    def initialize_cc_embeddings(self, table, cc_ids, plan=None, node=None):
         """(B, C, L) ids -> (B, C, D) via sum or max INCLUDING pad zeros
         (reference: SubGNN.py:609-622 does not mask; 'max' therefore clips
         at 0 — quirk preserved). `plan` (ops/embedding.GatherPlan built from
-        exactly cc_ids) routes the table gradient through the plan kernel."""
-        if plan is not None:
-            embeds = embedding_gather(table, cc_ids, plan)        # (B,C,L,D)
-        else:
-            embeds = table[cc_ids]
+        exactly cc_ids) routes the table gradient through the plan kernel;
+        `node`: the mesh of a node-sharded table (`_lookup`)."""
+        embeds = self._lookup(table, cc_ids, plan, node)          # (B,C,L,D)
         if self.hp.cc_aggregator == "sum":
             return embeds.sum(dim=2)
         if self.hp.cc_aggregator == "max":
@@ -177,14 +213,15 @@ class SubGNNModel(nn.Module):
         raise NotImplementedError(self.hp.cc_aggregator)
 
     def _struct_anchor_embeds(self, params, table, int_walks, bor_walks,
-                              keep_mask: Optional[KeepMask]):
+                              keep_mask: Optional[KeepMask], node=None):
         """All structure anchor-patch embeddings in one batched LSTM call:
         (n_layers, A_S, W, L) walks -> (emb_int, emb_bor), each
         (n_layers, A_S, D), the LSTM over each walk summed over walks.
         `keep_mask` (train mode) draws the between-layer LSTM dropout."""
         nl, A_S, W, L = int_walks.shape
         walks = torch.cat([int_walks, bor_walks], dim=0)          # (2nl,A,W,L)
-        walk_embeds = table[walks.reshape(2 * nl * A_S * W, L)]
+        walk_embeds = self._lookup(table, walks.reshape(2 * nl * A_S * W, L),
+                                   node=node)
         hidden = lstm_forward(params["lstm"], walk_embeds,
                               aggregator=self.hp.lstm_aggregator,
                               dropout=self.hp.lstm_dropout,
@@ -226,7 +263,8 @@ class SubGNNModel(nn.Module):
                 anchors: Dict[str, Any], *, train: bool = False,
                 keep_mask: Optional[KeepMask] = None,
                 cc_tables: Optional[Dict[str, Any]] = None,
-                bn_moments: Optional[Callable] = None):
+                bn_moments: Optional[Callable] = None,
+                mesh: Optional[MX.Mesh] = None):
         """(logits (B, num_classes) float32, new_state) for one batch.
 
         batch: cc_ids (B,C,L) int64; subgraph_idx (B,) int64; either NP_sim
@@ -242,6 +280,8 @@ class SubGNNModel(nn.Module):
         cc_tables: 6 per-channel (N, C, D) tables when trainable_cc.
         bn_moments: train-mode batch-norm moments (`_batch_norm`); default
                the batch's own.
+        mesh:  a mesh with a node axis: node_embed and NP_sim are this
+               rank's shards (module docstring); ignored at n_node = 1.
         """
         hp = self.hp
         lstm_drop = (hp.use_structure and hp.lstm_dropout > 0
@@ -251,7 +291,8 @@ class SubGNNModel(nn.Module):
                              "(models/dropout.generator_keep_mask)")
         if not train:
             keep_mask = None
-        table = self._table(params)
+        node = mesh if mesh is not None and mesh.sharded else None
+        table = self._table(params, node)
         if hp.dtype == "bfloat16":
             # bf16 activations and matmuls, fp32 master weights; logits
             # return to fp32
@@ -263,7 +304,7 @@ class SubGNNModel(nn.Module):
         bn_state = dict(state.get("bn", {}))
 
         init_cc = self.initialize_cc_embeddings(
-            table, cc_ids, batch.get("cc_plan"))                  # (B, C, D)
+            table, cc_ids, batch.get("cc_plan"), node)            # (B, C, D)
         cc_mask = cc_ids[:, :, 0] != PAD_VALUE                    # (B, C)
 
         if hp.use_neighborhood:
@@ -271,11 +312,8 @@ class SubGNNModel(nn.Module):
             n_ids_all = torch.cat(
                 [anchors["neigh_int"][:, sub_idx],
                  anchors["neigh_bor"][:, sub_idx]], dim=-1)       # (L,B,C,A)
-            neigh_plan = batch.get("neigh_plan")
-            if neigh_plan is not None:
-                n_emb_all = embedding_gather(table, n_ids_all, neigh_plan)
-            else:
-                n_emb_all = table[n_ids_all]
+            n_emb_all = self._lookup(table, n_ids_all,
+                                     batch.get("neigh_plan"), node)
 
         if hp.trainable_cc and cc_tables is not None:
             ch_cc = {k: cc_tables[k][sub_idx] for k in CHANNEL_CC_KEYS}
@@ -288,14 +326,18 @@ class SubGNNModel(nn.Module):
         if hp.use_structure:
             emb_int_all, emb_bor_all = self._struct_anchor_embeds(
                 params, table, anchors["struc_int_walks"],
-                anchors["struc_bor_walks"], keep_mask)
+                anchors["struc_bor_walks"], keep_mask, node)
+        # the NP similarities' whole node axis (a node rank holds 1/n_node)
+        n_cols = (batch["NP_sim"].shape[2] * (1 if node is None
+                                              else node.n_node)
+                  if "NP_sim" in batch else 0)
 
         def np_sims_gather(anchor_ids):
             # sims[b,c,a] = NP_sim[b, c, anchor_id-1]; jnp clamps
             # out-of-range gathers and torch raises, so clip explicitly
             # (invalid slots are masked downstream, subgraph_mpn.py:91-94)
-            idx = (anchor_ids - 1).clamp(0, batch["NP_sim"].shape[2] - 1)
-            return torch.gather(batch["NP_sim"], 2, idx)
+            idx = (anchor_ids - 1).clamp(0, n_cols - 1)
+            return self._np_columns(batch["NP_sim"], idx, node)
 
         neigh_sims = batch.get("neigh_sims")      # (L, B, C, A_in+A_out)
         pos_in_sims = batch.get("pos_in_sims")    # (L, B, C, A_P_in)
@@ -345,18 +387,24 @@ class SubGNNModel(nn.Module):
                 a_in_bc = ids_in[:, None, :].expand(B, C, A_pi)
                 valid_in = cc_mask[:, :, None].expand(B, C, A_pi)
                 agg, P_in_prop = mpn_messages(
-                    layer_p["internal"], table[ids_in],
+                    layer_p["internal"], self._lookup(table, ids_in,
+                                                      node=node),
                     (pos_in_sims[l] if pos_in_sims is not None
                      else np_sims_gather(a_in_bc)), valid_in,
                     norm_pos_struc_embed=hp.norm_pos_struc_embed,
                     layout="per_subgraph")
                 P_in = channel_update(layer_p["internal"], P_in, agg)
                 ids_out = anchors["pos_ext"][l]                   # (A_out,)
+                # a PAD id reads the last column, as jnp's negative index
                 sims_out = (pos_out_sims[l] if pos_out_sims is not None
-                            else batch["NP_sim"][:, :, ids_out - 1])
+                            else self._np_columns(
+                                batch["NP_sim"],
+                                torch.remainder(ids_out - 1, n_cols), node))
                 valid_out = cc_mask[:, :, None].expand(B, C, A_po)
                 agg, P_out_prop = mpn_messages(
-                    layer_p["border"], table[ids_out], sims_out, valid_out,
+                    layer_p["border"], self._lookup(table, ids_out,
+                                                    node=node),
+                    sims_out, valid_out,
                     norm_pos_struc_embed=hp.norm_pos_struc_embed,
                     layout="shared")
                 P_out = channel_update(layer_p["border"], P_out, agg)

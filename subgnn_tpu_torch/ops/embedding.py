@@ -16,7 +16,8 @@ launches csrc/segment_matmul.cu (a deterministic segmented row reduction;
 see the source for its design and bound); a CPU tensor takes the plain
 version `segment_matmul_torch`, the torch form of `_segment_matmul_xla`
 (a per-tile one-hot product). `embedding_gather` wraps the gather and that
-backward in a `torch.autograd.Function`.
+backward in a `torch.autograd.Function`; `shard_gather` is its form for
+one rank's rows of a table sharded over the node axis of a mesh.
 
 The same sum is a sparse-dense product over a fixed edge array:
 `segment_sum(msgs, dst, plan)` is out[v] = sum of msgs[e] over the edges
@@ -59,29 +60,50 @@ class GatherPlan(NamedTuple):
                           self.block.to(device), self.n_rows)
 
 
-def tiles_needed(ids: np.ndarray, n_rows: int) -> int:
+def _in_range(flat: np.ndarray, row_range):
+    """(ids as rows of the range, their flat positions, the range's rows)."""
+    lo, hi = row_range
+    pos = np.flatnonzero((flat >= lo) & (flat < hi))
+    return flat[pos] - lo, pos, hi - lo
+
+
+def tiles_needed(ids: np.ndarray, n_rows: int, row_range=None) -> int:
     """Tile count make_gather_plan would use for this id multiset."""
     flat = np.asarray(ids, np.int64).reshape(-1)
+    if row_range is not None:
+        flat, _, n_rows = _in_range(flat, row_range)
     n_blocks = -(-n_rows // TABLE_BLOCK)
     counts = np.bincount(flat // TABLE_BLOCK, minlength=n_blocks)
     return int(np.maximum(-(-counts // TILE_WIDTH), 1).sum())
 
 
 def make_gather_plan(ids: np.ndarray, n_rows: int,
-                     n_tiles: int | None = None) -> GatherPlan:
+                     n_tiles: int | None = None,
+                     row_range: tuple | None = None) -> GatherPlan:
     """Build the backward routing for a static id array (host, numpy).
 
     ids may have any shape; values in [0, n_rows). `n_tiles` fixes the tile
     count (>= tiles_needed) so plans of same-shaped batches share one shape;
     it defaults to exactly tiles_needed. Padding tiles are appended, mapped
     to the last block. Returns CPU int32 tensors (GatherPlan.to moves them).
+
+    `row_range` (lo, hi): the plan of a node-axis shard, table rows [lo, hi)
+    alone (parallel/mesh.py): ids outside the range get no slot, the slots
+    keep their positions in the flat ids, a slot's row is id - lo, and the
+    plan's n_rows is hi - lo.
     """
     flat = np.asarray(ids, np.int64).reshape(-1)
     if flat.size and (flat.min() < 0 or flat.max() >= n_rows):
         raise ValueError("ids out of range for table")
+    n_ids = flat.size
+    where = None
+    if row_range is not None:
+        flat, where, n_rows = _in_range(flat, row_range)
     n_blocks = -(-n_rows // TABLE_BLOCK)
     order = np.argsort(flat, kind="stable").astype(np.int64)
     sorted_ids = flat[order]
+    if where is not None:
+        order = where[order]       # positions in the whole flat ids
     counts = np.bincount(sorted_ids // TABLE_BLOCK, minlength=n_blocks)
     tiles_per_block = np.maximum(-(-counts // TILE_WIDTH), 1)
     need = int(tiles_per_block.sum())
@@ -91,7 +113,7 @@ def make_gather_plan(ids: np.ndarray, n_rows: int,
         raise ValueError(f"plan needs {need} tiles > requested {n_tiles}")
 
     W = TILE_WIDTH
-    pos = np.full((n_tiles, W), flat.size, np.int64)
+    pos = np.full((n_tiles, W), n_ids, np.int64)
     local = np.full((n_tiles, W), TABLE_BLOCK, np.int64)
     block = np.full(n_tiles, n_blocks - 1, np.int64)
     t = 0
@@ -287,19 +309,62 @@ class EmbeddingGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        # grad has the forward output's dtype, the table's, so dtable has it;
-        # an aligned copy keeps a fast-set D on the kernel's vector path
-        D = grad.shape[-1]
-        g = grad.reshape(-1, D).contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()
-        return segment_matmul(g, ctx.plan, ctx.rows), None, None
+        return segment_matmul(_flat_rows(grad), ctx.plan, ctx.rows), None, \
+            None
+
+
+def _flat_rows(grad: torch.Tensor) -> torch.Tensor:
+    """A gather's cotangent as the kernel's (n_ids, D) g. It has the forward
+    output's dtype, the table's, so dtable has it; an aligned copy keeps a
+    fast-set D on the kernel's vector path."""
+    g = grad.reshape(-1, grad.shape[-1]).contiguous()
+    return g.clone() if g.data_ptr() % 16 else g
 
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor,
                      plan: GatherPlan) -> torch.Tensor:
     """table[ids] with the plan-routed backward (see EmbeddingGather)."""
     return EmbeddingGather.apply(table, ids, plan)
+
+
+def _masked_rows(shard, ids, lo):
+    """shard[ids - lo] where that row is in the shard, zeros elsewhere (an
+    id outside reads row 0 of the shard, then masked)."""
+    local = ids - lo
+    inside = (local >= 0) & (local < shard.shape[0])
+    rows = shard[torch.where(inside, local, torch.zeros_like(local))]
+    return rows.masked_fill(~inside[..., None], 0)
+
+
+class ShardGather(torch.autograd.Function):
+    """`_masked_rows` whose backward is `segment_matmul` over `plan`, built
+    from exactly `ids` with row_range (lo, lo + shard rows): the gradient
+    of the shard's rows alone (the masked slots have no slot in it)."""
+
+    @staticmethod
+    def forward(ctx, shard, ids, lo, plan):
+        ctx.plan = plan
+        ctx.rows = shard.shape[0]
+        return _masked_rows(shard, ids, lo)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (segment_matmul(_flat_rows(grad), ctx.plan, ctx.rows), None,
+                None, None)
+
+
+def shard_gather(shard: torch.Tensor, ids: torch.Tensor, lo: int,
+                 plan: GatherPlan | None = None) -> torch.Tensor:
+    """This rank's terms of table[ids] from its rows [lo, lo + len(shard))
+    of a node-sharded table (parallel/mesh.py): shard[id - lo] for the ids
+    in its rows, zeros for the rest (masked, never clamped into the shard),
+    so that the terms summed over the node group (mesh.node_sum) are the
+    whole table's gather, exactly. With `plan` (make_gather_plan over the
+    same row range) the shard's gradient is `segment_matmul`; without one
+    it is autograd's index backward."""
+    if plan is None:
+        return _masked_rows(shard, ids, lo)
+    return ShardGather.apply(shard, ids, lo, plan)
 
 
 class SegmentSum(torch.autograd.Function):
@@ -311,10 +376,7 @@ class SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, dst, plan):
         ctx.save_for_backward(dst)
-        g = msgs.contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()
-        return segment_matmul(g, plan)
+        return segment_matmul(_flat_rows(msgs), plan)
 
     @staticmethod
     def backward(ctx, grad):

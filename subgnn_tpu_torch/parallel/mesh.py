@@ -1,26 +1,47 @@
-"""The training mesh on torch.distributed: its data axis.
+"""The training mesh on torch.distributed: its data and node axes.
 
 Port of subgnn_tpu/parallel/mesh.py. The JAX package lays a (data, node)
 jax.sharding.Mesh over the visible devices of one process and lets GSPMD
 place the batch and insert the collectives. Here each mesh position is a
-process (a rank): NCCL on the card, gloo on the CPU. Every rank holds the
-whole model, both splits and the optimizer state (`split_pspecs` replicates
-everything at n_node = 1); rank r computes rows [r*b, (r+1)*b) of each
-batch (b = B / n_data, `shard_batch`, the counterpart of `batch_pspecs` and
-`epoch_extras_pspecs`) and builds its own gather plans for them, so its
-embedding-table gradient is a dense tensor like every other leaf. The
-collectives GSPMD inserts become explicit calls here:
+process (a rank): NCCL on the card, gloo on the CPU. Ranks are laid out as
+JAX lays out devices (`reshape(n_data, n_node)`): rank r sits at data index
+r // n_node and node index r % n_node.
 
-  * `all_reduce_sum_`: the gradients, one flat all-reduce for the list,
-    before Adam (the JAX step's psum over 'data');
+The data axis: data index d computes rows [d*b, (d+1)*b) of each batch
+(b = B / n_data, `shard_batch`, the counterpart of `batch_pspecs` and
+`epoch_extras_pspecs`) and builds its own gather plans for them, so its
+embedding-table gradient is a dense tensor like every other leaf.
+
+The node axis (`param_pspecs`, `batch_pspecs`, `split_pspecs`): node index
+k holds rows `shard_rows` of the embedding table, and with them Adam's two
+moments of it, and columns `shard_cols` of the non-compact NP similarities.
+Every other parameter and array is replicated. A gather from the sharded
+table is the lowering GSPMD picks: a masked gather of this rank's rows
+(ops/embedding.py:shard_gather) summed over the node group (`node_sum`),
+exact since every term but one is zero. The ranks of a node group share
+their batch rows and compute the same loss from the same sums, so the
+sum's backward is the identity, and each rank's table gradient is
+segment_matmul over a plan of its own rows (train/plans.py).
+
+The collectives GSPMD inserts become explicit calls here, each over the
+group its sum is over:
+
+  * `all_reduce_sum_`: the gradients (replicated leaves and this rank's
+    table shard alike), one flat all-reduce for the list, before Adam, and
+    the step losses: over the data group (the JAX step's psum over 'data');
   * `all_reduce_bn_stats`: batch norm's train-mode sums, inside autograd,
-    so that the moments and their backward are the global batch's;
-  * `all_gather_rows`: each rank's eval logits to every rank.
+    so that the moments and their backward are the global batch's (data
+    group);
+  * `all_gather_rows`: each data index's eval logits to every rank (data
+    group);
+  * `node_sum`: the masked table and NP-similarity gathers (node group);
+  * `all_reduce_node_`: the table shard's squared gradient norm, and the
+    whole table and moments a checkpoint holds (`all_gather_node`, node
+    group).
 
 Each helper counts its calls and the bytes it reduces (`calls`, `bytes`),
 as a kernel wrapper counts its launches; a captured step adds them per
-replay (train/graphs.py). The node axis (`mesh_node_axis`) is ROADMAP
-Queue 1 item 10: until it lands, asking for it raises.
+replay (train/graphs.py).
 
 Launch with torchrun (`init_from_env`); tests and chip_smoke.py initialise
 the default group themselves with a file:// store.
@@ -29,8 +50,9 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -38,23 +60,28 @@ from ..device import resolve_device
 
 AXIS_NAMES = ("data", "node")
 # batch keys that are not batch-major: the layer-major compact anchor-column
-# similarities (train/sims.py), (L, B, C, A): rank r takes axis 1
+# similarities (train/sims.py), (L, B, C, A): a data index takes its part
+# of axis 1
 COMPACT_SIM_KEYS = ("neigh_sims", "pos_in_sims", "pos_out_sims")
-NODE_AXIS_TODO = ("mesh_node_axis > 1 (sharding the node embedding table and "
-                  "the NP similarities over ranks) is not ported yet: ROADMAP "
-                  "Queue 1 item 10")
 
 
 class Mesh:
     """A (data, node) mesh of the ranks of a process group: this rank's
-    position and device, and the group the collectives run over."""
+    position and device, and the groups the collectives run over:
+    `data_group`, the n_data ranks of this node index (the whole group at
+    n_node = 1), and `node_group`, the n_node ranks of this data index
+    (None at n_node = 1)."""
 
     axis_names = AXIS_NAMES
 
     def __init__(self, group, n_data: int, n_node: int, rank: int,
-                 world: int, device: torch.device):
+                 world: int, device: torch.device, data_group=None,
+                 node_group=None):
         self.group, self.n_data, self.n_node = group, n_data, n_node
         self.rank, self.world, self.device = rank, world, device
+        self.data_index, self.node_index = divmod(rank, n_node)
+        self.data_group = group if data_group is None else data_group
+        self.node_group = node_group
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -70,10 +97,36 @@ class Mesh:
         """Rank 0: the one rank that writes files."""
         return self.rank == 0
 
+    @property
+    def sharded(self) -> bool:
+        """The node axis is in use: the table and NP sims are sharded."""
+        return self.n_node > 1
+
     def rows(self, batch_size: int) -> slice:
         """This rank's rows of a batch of `batch_size`."""
         b = batch_size // self.n_data
-        return slice(self.rank * b, (self.rank + 1) * b)
+        return slice(self.data_index * b, (self.data_index + 1) * b)
+
+    def shard_rows(self, rows: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's rows of a table of `rows` rows (table
+        row `id` holds node `id`, row 0 the PAD row)."""
+        if rows % self.n_node:
+            raise ValueError(f"{rows} table rows must divide over the "
+                             f"'node' mesh axis ({self.n_node})")
+        n = rows // self.n_node
+        return self.node_index * n, (self.node_index + 1) * n
+
+    def shard_cols(self, n_cols: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's columns of the NP similarities' node
+        axis of `n_cols` (column `id - 1` holds node `id`). An axis that
+        does not divide raises, as jax.device_put of the JAX package's
+        NP_sim sharding does."""
+        if n_cols % self.n_node:
+            raise ValueError(f"the NP similarities' node axis ({n_cols}) "
+                             f"must divide over the 'node' mesh axis "
+                             f"({self.n_node})")
+        n = n_cols // self.n_node
+        return self.node_index * n, (self.node_index + 1) * n
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} of {self.world}, "
@@ -93,8 +146,8 @@ def make_device_mesh(n_data: Optional[int] = None, n_node: int = 1,
             "torch.distributed.init_process_group first")
     group = dist.group.WORLD if group is None else group
     world = dist.get_world_size(group)
-    if n_node != 1:
-        raise ValueError(NODE_AXIS_TODO)
+    if n_node < 1:
+        raise ValueError(f"n_node must be at least 1, got {n_node}")
     if n_data is None:
         n_data = world // n_node
     need = n_data * n_node
@@ -109,7 +162,24 @@ def make_device_mesh(n_data: Optional[int] = None, n_node: int = 1,
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(group, n_data, n_node, dist.get_rank(group), world, dev)
+    rank = dist.get_rank(group)
+    data_group = node_group = None
+    if n_node > 1:
+        # every rank creates every subgroup, in one order (new_group is
+        # collective over the whole group)
+        grid = np.asarray(dist.get_process_group_ranks(group)).reshape(
+            n_data, n_node)
+        d, k = divmod(rank, n_node)
+        for i in range(n_data):
+            g = dist.new_group(grid[i].tolist())
+            if i == d:
+                node_group = g
+        for j in range(n_node):
+            g = dist.new_group(grid[:, j].tolist())
+            if j == k:
+                data_group = g
+    return Mesh(group, n_data, n_node, rank, world, dev, data_group,
+                node_group)
 
 
 def mesh_from_hparams(hp, group=None, device=None) -> Optional[Mesh]:
@@ -120,8 +190,6 @@ def mesh_from_hparams(hp, group=None, device=None) -> Optional[Mesh]:
     n_node = int(getattr(hp, "mesh_node_axis", 1) or 1)
     if n_data * n_node <= 1:
         return None
-    if n_node > 1:
-        raise ValueError(NODE_AXIS_TODO)
     avail = (dist.get_world_size(group) if dist.is_initialized() else 1)
     if n_data * n_node > avail:
         raise ValueError(
@@ -197,45 +265,94 @@ def _count(helper, t: torch.Tensor) -> None:
     helper.bytes += t.numel() * t.element_size()
 
 
-def all_reduce_sum_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
-    """Sum each tensor over the mesh's ranks, in place: one all-reduce of
-    the list flattened into one buffer (one dtype)."""
+def _sum_flat_(helper, tensors: List[torch.Tensor], group) -> None:
     if not tensors:
         return
     if len({t.dtype for t in tensors}) != 1:
-        raise TypeError("all_reduce_sum_ takes tensors of one dtype, got "
+        raise TypeError(f"{helper.__name__} takes tensors of one dtype, got "
                         f"{sorted({str(t.dtype) for t in tensors})}")
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    _count(all_reduce_sum_, flat)
+    dist.all_reduce(flat, group=group)
+    _count(helper, flat)
     parts = flat.split([t.numel() for t in tensors])
     torch._foreach_copy_(tensors, [p.view_as(t)
                                    for p, t in zip(parts, tensors)])
 
 
+def all_reduce_sum_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Sum each tensor over the data group, in place: one all-reduce of
+    the list flattened into one buffer (one dtype)."""
+    _sum_flat_(all_reduce_sum_, tensors, mesh.data_group)
+
+
+def all_reduce_node_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Sum each tensor over the node group, in place (one buffer)."""
+    _sum_flat_(all_reduce_node_, tensors, mesh.node_group)
+
+
 class _SumOverRanks(torch.autograd.Function):
-    """y = the sum of x over the ranks; the loss being the sum of the ranks'
-    losses, the gradient of x is the sum of the ranks' gradients of y."""
+    """y = the sum of x over the data group; the loss being the sum of the
+    data ranks' losses, the gradient of x is the sum of their gradients of
+    y."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
         y = x.clone()
-        dist.all_reduce(y, group=mesh.group)
+        dist.all_reduce(y, group=mesh.data_group)
         _count(all_reduce_bn_stats, y)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.mesh.group)
+        dist.all_reduce(grad, group=ctx.mesh.data_group)
         _count(all_reduce_bn_stats, grad)
         return grad, None
 
 
 def all_reduce_bn_stats(stats: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """`stats` summed over the ranks, differentiably (see _SumOverRanks)."""
+    """`stats` summed over the data group, differentiably (see
+    _SumOverRanks)."""
     return _SumOverRanks.apply(stats, mesh)
+
+
+class _SumOverNode(torch.autograd.Function):
+    """y = the sum of x over the node group. Every rank of the group
+    computes the same loss from the same y (counted once), so the gradient
+    of x is the gradient of y: the backward is the identity. (A further
+    all-reduce there, as _SumOverRanks does, would count the loss n_node
+    times.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.node_group)
+        _count(node_sum, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def node_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`x` summed over the node group, with the identity backward (see
+    _SumOverNode): the second half of a gather from a node-sharded
+    table or NP similarities."""
+    return _SumOverNode.apply(x, mesh)
+
+
+def all_gather_node(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole (n_node * rows, ...) tensor from each node rank's (rows,
+    ...) shard, in node order, on every rank of the node group: an
+    all-reduce of a zero buffer holding this rank's shard in its place
+    (exact, as all_gather_rows)."""
+    n = shard.shape[0]
+    full = shard.new_zeros((n * mesh.n_node,) + tuple(shard.shape[1:]))
+    full[mesh.node_index * n:(mesh.node_index + 1) * n] = shard
+    all_reduce_node_([full], mesh)
+    return full
 
 
 def bn_moments(flat: torch.Tensor, mesh: Mesh):
@@ -251,19 +368,21 @@ def bn_moments(flat: torch.Tensor, mesh: Mesh):
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """(n_data * b, ...) from each rank's (b, ...) rows, in rank order, on
-    every rank: an all-reduce of a zero buffer holding this rank's rows in
-    its place (exact: every other term is 0), which gloo takes for CUDA
-    tensors as NCCL does, and a CUDA graph captures."""
+    """(n_data * b, ...) from each data index's (b, ...) rows, in data
+    order, on every rank: an all-reduce over the data group of a zero
+    buffer holding this rank's rows in its place (exact: every other term
+    is 0), which gloo takes for CUDA tensors as NCCL does, and a CUDA graph
+    captures."""
     b = x.shape[0]
     full = x.new_zeros((b * mesh.n_data,) + tuple(x.shape[1:]))
-    full[mesh.rank * b:(mesh.rank + 1) * b] = x
-    dist.all_reduce(full, group=mesh.group)
+    full[mesh.data_index * b:(mesh.data_index + 1) * b] = x
+    dist.all_reduce(full, group=mesh.data_group)
     _count(all_gather_rows, full)
     return full
 
 
-COLLECTIVES = (all_reduce_sum_, all_reduce_bn_stats, all_gather_rows)
+COLLECTIVES = (all_reduce_sum_, all_reduce_bn_stats, all_gather_rows,
+               node_sum, all_reduce_node_)
 for _helper in COLLECTIVES:
     _helper.calls = 0
     _helper.bytes = 0
@@ -278,7 +397,8 @@ def reset_counts() -> None:
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's part of a global batch (numpy arrays or tensors): rows
-    of each batch-major key, axis 1 of the layer-major compact sims. Gather
+    of each batch-major key, axis 1 of the layer-major compact sims, and
+    of the NP similarities this rank's columns too (`batch_pspecs`). Gather
     plans are built per rank from its own ids (train/plans.py), never
     sliced."""
     out = {}
@@ -290,6 +410,9 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
                              "rows, after shard_batch")
         elif k in COMPACT_SIM_KEYS:
             out[k] = v[:, mesh.rows(v.shape[1])]
+        elif k == "NP_sim" and mesh.sharded:
+            lo, hi = mesh.shard_cols(v.shape[2])
+            out[k] = v[mesh.rows(v.shape[0]), :, lo:hi]
         else:
             out[k] = v[mesh.rows(v.shape[0])]
     return out

@@ -31,20 +31,27 @@ updates the leaves in place and keeps its step count on the device.
 checkpoint (`resume_from`) and traces itself with torch.profiler into
 `profile_dir`; `lr_find` is the LR range test.
 
-On a mesh (`Trainer(mesh=...)`, or the hparams' mesh_data_axis through
-parallel/mesh.py:mesh_from_hparams) every rank runs this same loop over the
-same epoch orders and holds every parameter; rank r computes rows
-[r*b, (r+1)*b) of each batch with its own gather plans, and the step sums
-the gradients over the ranks before Adam (inside the captured step in the
-fused mode), with batch norm's moments, dropout masks and the loss those of
-the whole batch (`loss_and_grads`): the fit is the one-process fit. Eval
+On a mesh (`Trainer(mesh=...)`, or the hparams' mesh_data_axis and
+mesh_node_axis through parallel/mesh.py:mesh_from_hparams) every rank runs
+this same loop over the same epoch orders. Data index d computes rows
+[d*b, (d+1)*b) of each batch with its own gather plans, and the step sums
+the gradients over the data group before Adam (inside the captured step in
+the fused mode), with batch norm's moments, dropout masks and the loss those
+of the whole batch (`loss_and_grads`): the fit is the one-process fit. On a
+node axis node index k holds rows `shard_rows` of the embedding table (and
+Adam's moments of them) and, in the non-compact mode, columns `shard_cols`
+of the NP similarities; its plans route its rows alone, the forward sums
+its gathers over the node group (models/subgnn.py), and the gradient
+clipping norm takes the table's squared sum over the node group. Eval
 logits are gathered to every rank before the metrics, so every rank makes
-the same checkpoint and early-stop decisions; rank 0 alone writes
-checkpoints, TensorBoard scalars and log lines.
+the same checkpoint and early-stop decisions; every rank gathers the whole
+table and its moments before each checkpoint (`whole_params`), and rank 0
+alone writes checkpoints, TensorBoard scalars and log lines.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -60,7 +67,8 @@ from ..models.subgnn import SubGNNModel
 from ..ops.embedding import GatherPlan
 from ..parallel import mesh as MX
 from . import metrics as M
-from .checkpoint import TopKCheckpoints, load_checkpoint
+from .checkpoint import (TopKCheckpoints, load_checkpoint,
+                         load_params_filtered)
 from .graphs import StepGraph
 from .plans import PlanBuilder, batch_plans, epoch_plans
 from .sims import compact_sims_for_batch, epoch_compact_sims
@@ -85,6 +93,31 @@ def mpn_edges_per_step(hp: HParams, batch_size: int, max_n_cc: int) -> int:
     if hp.use_structure:
         per_layer += 2 * hp.n_anchor_patches_structure
     return batch_size * max_n_cc * per_layer * hp.n_layers
+
+
+def node_gathers_per_step(hp: HParams, rows: int, max_n_cc: int,
+                          cc_len: int, compact: bool) -> tuple:
+    """(table ids, NP-similarity values) that one forward over `rows` batch
+    rows gathers from a node-sharded table and NP sims, i.e. what its
+    node-group sums carry (parallel/mesh.py:node_sum): the CC ids, the
+    neighborhood anchors, the structure walks and the position anchors, and
+    without compact sims the neighborhood and position anchors' columns."""
+    nl, C = hp.n_layers, max_n_cc
+    ids = rows * C * cc_len
+    cols = 0
+    if hp.use_neighborhood:
+        a = hp.n_anchor_patches_N_in + hp.n_anchor_patches_N_out
+        ids += nl * rows * C * a
+        cols += nl * rows * C * a
+    if hp.use_structure:
+        ids += (2 * nl * hp.n_anchor_patches_structure
+                * hp.n_triangular_walks * hp.random_walk_len)
+    if hp.use_position:
+        ids += nl * (rows * hp.n_anchor_patches_pos_in
+                     + hp.n_anchor_patches_pos_out)
+        cols += nl * rows * C * (hp.n_anchor_patches_pos_in
+                                 + hp.n_anchor_patches_pos_out)
+    return ids, 0 if compact else cols
 
 
 def copy_tree(tree, device):
@@ -125,6 +158,8 @@ class Adam:
 
     def __init__(self, lr: float, grad_clip: float = 0.0, frozen: tuple = ()):
         self.lr, self.grad_clip, self.frozen = lr, grad_clip, tuple(frozen)
+        # the clipping norm; a node-axis trainer sets its sharded form
+        self.norm = global_norm
 
     def trainable(self, params) -> List[torch.Tensor]:
         return [x for k, v in params.items() if k not in self.frozen
@@ -175,7 +210,7 @@ class Adam:
         theirs, in `trainable` order (overwritten: clipped in place)."""
         leaves = self.trainable(params)
         if self.grad_clip and self.grad_clip > 0:
-            norm = global_norm(grads)
+            norm = self.norm(grads)
             scale = torch.where(norm < self.grad_clip,
                                 torch.ones_like(norm), self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
@@ -199,9 +234,19 @@ class Adam:
         torch._foreach_add_(leaves, upd)
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the L2 norm of all leaves together."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: List[torch.Tensor],
+                shard: Optional[tuple] = None) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of all leaves together. `shard`:
+    (mesh, i) when leaf i is this rank's shard of a node-sharded leaf: its
+    squared sum is summed over the node group, so that every rank gets the
+    whole leaf's norm and counts each replicated leaf once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if shard is not None:
+        mesh, i = shard
+        sq = norms[i:i + 1].square()
+        MX.all_reduce_node_([sq], mesh)
+        norms = torch.cat([norms[:i], sq.sqrt(), norms[i + 1:]])
+    return torch.linalg.vector_norm(norms)
 
 
 def make_optimizer(hp: HParams) -> Adam:
@@ -243,14 +288,15 @@ def loss_and_grads(model: SubGNNModel, tx: Adam, params, state, batch,
     (the ranks' losses sum to the batch's mean; a rank with no valid row
     gives 0), batch norm takes the whole batch's moments
     (parallel/mesh.py:bn_moments), and the gradients are summed over the
-    ranks (`all_reduce_sum_`), so every rank gets the one-process batch's
-    gradients, as the JAX step's psum gives them."""
+    data group (`all_reduce_sum_`), so every rank gets the one-process
+    batch's gradients (on a node axis, of its table rows), as the JAX
+    step's psum gives them."""
     bn_moments = (None if mesh is None
                   else lambda flat: MX.bn_moments(flat, mesh))
     logits, new_state = model(params, state, batch, anchors, train=True,
                               keep_mask=keep_mask,
                               cc_tables=params.get("train_cc"),
-                              bn_moments=bn_moments)
+                              bn_moments=bn_moments, mesh=mesh)
     loss = model.loss_fn(logits, batch["label"], batch["valid"], n_valid)
     # leaves the forward does not reach get zero gradients, as in jax.grad
     grads = list(torch.autograd.grad(loss, tx.trainable(params),
@@ -294,6 +340,8 @@ class Trainer:
             self._check_mesh()
         self.monitor = monitor
         lead = self.mesh is None or self.mesh.lead
+        # every rank of a node axis gathers what rank 0 saves
+        self._saving = bool(ckpt_dir)
         self.ckpt = (TopKCheckpoints(ckpt_dir, checkpoint_k, monitor)
                      if ckpt_dir and lead else None)
         self.tb = TBWriter(tb_dir) if tb_dir and lead else None
@@ -308,13 +356,16 @@ class Trainer:
         self.fused: Optional[bool] = None      # the mode of the last fit
         self._grad_norms: List[float] = []     # debug_mode, per step
         self._graphs: List[StepGraph] = []
+        # this rank's [lo, hi) of the table on a node axis (set by fit)
+        self._rows: Optional[tuple] = None
+        # (shape, bytes) of what the last fit held on the device: the
+        # table, Adam's moments of it, the NP sims (resident, or a batch's)
+        self.held: Dict[str, Any] = {}
 
     def _check_mesh(self) -> None:
         """The JAX trainer's checks (loop.py:411-416), and the trainer's
         device as the mesh's."""
         mesh, B = self.mesh, self.hp.batch_size
-        if mesh.n_node != 1:
-            raise ValueError(MX.NODE_AXIS_TODO)
         if B % mesh.n_data:
             raise ValueError(f"batch_size {B} must divide over the 'data' "
                              f"mesh axis ({mesh.n_data})")
@@ -334,7 +385,8 @@ class Trainer:
         local = batch if self.mesh is None else MX.shard_batch(batch,
                                                                 self.mesh)
         logits, _ = self.model(self.params, self.state, local, anchors,
-                               train=False, cc_tables=cc_tables)
+                               train=False, cc_tables=cc_tables,
+                               mesh=self.mesh)
         if self.mesh is not None:
             logits = MX.all_gather_rows(logits, self.mesh)
         return self.model.loss_fn(logits, batch["label"], batch["valid"]), \
@@ -364,11 +416,16 @@ class Trainer:
                    if getattr(data, name) is not None)
 
     @staticmethod
-    def _device_split(data, device, include_np_sim: bool) -> Dict[str, Any]:
-        """A whole split's arrays on `device`, once (fused mode)."""
+    def _device_split(data, device, include_np_sim: bool,
+                      mesh: Optional[MX.Mesh] = None) -> Dict[str, Any]:
+        """A whole split's arrays on `device`, once (fused mode); on a node
+        axis, this rank's columns of the NP sims (`split_pspecs`)."""
+        np_sim = data.NP_sim if include_np_sim else None
+        if np_sim is not None and mesh is not None and mesh.sharded:
+            lo, hi = mesh.shard_cols(np_sim.shape[2])
+            np_sim = np_sim[:, :, lo:hi]
         return device_batch({
-            "cc_ids": data.cc_ids, "label": data.labels,
-            "NP_sim": data.NP_sim if include_np_sim else None,
+            "cc_ids": data.cc_ids, "label": data.labels, "NP_sim": np_sim,
             "I_S_sim": data.I_S_sim, "B_S_sim": data.B_S_sim}, device)
 
     @staticmethod
@@ -442,6 +499,80 @@ class Trainer:
         return out
 
     # ------------------------------------------------------------------ fit
+
+    # ----------------------------------------------------- the node axis
+
+    def _own_rows(self, params):
+        """`params` with its table cut to this rank's rows (a new dict; the
+        caller's is untouched), or `params` itself off a node axis."""
+        if self._rows is None:
+            return params
+        lo, hi = self._rows
+        return dict(params, node_embed=params["node_embed"][lo:hi])
+
+    def _table_leaf(self, params) -> Optional[int]:
+        """The table's index among the trainable leaves (tx.trainable's
+        order), or None when it is frozen."""
+        i = 0
+        for k, v in params.items():
+            if k in self.tx.frozen:
+                continue
+            if k == "node_embed":
+                return i
+            i += len(tree_leaves(v))
+        return None
+
+    def _own_moments(self, saved, whole_params):
+        """A checkpoint's Adam state with the table's moments cut to this
+        rank's rows."""
+        i = self._table_leaf(whole_params)
+        if self._rows is None or i is None or not isinstance(saved, dict) \
+                or not {"mu", "nu"} <= set(saved):
+            return saved
+        lo, hi = self._rows
+        cut = {}
+        for k in ("mu", "nu"):
+            cut[k] = list(saved[k])
+            if i < len(cut[k]):
+                cut[k][i] = np.asarray(cut[k][i])[lo:hi]
+        return dict(saved, **cut)
+
+    def whole_params(self):
+        """(params, opt_state) with the whole table and its whole moments:
+        on a node axis gathered over the node group (a collective: every
+        rank of the group calls it), else the trees themselves."""
+        if self._rows is None:
+            return self.params, self.opt_state
+        mesh = self.mesh
+        params = dict(self.params, node_embed=MX.all_gather_node(
+            self.params["node_embed"].detach(), mesh))
+        opt_state = self.opt_state
+        i = self._table_leaf(self.params)
+        if i is not None:
+            opt_state = dict(opt_state)
+            for k in ("mu", "nu"):
+                opt_state[k] = list(opt_state[k])
+                opt_state[k][i] = MX.all_gather_node(opt_state[k][i], mesh)
+        return params, opt_state
+
+    def load_weights(self, path, payload=None) -> None:
+        """A checkpoint's weights (load_params_filtered: the leaves whose
+        path and shape match) and model state into the trained trees; on a
+        node axis, this rank's rows of the checkpoint's whole table."""
+        payload = load_checkpoint(path) if payload is None else payload
+        saved = payload["params"]
+        if self._rows is not None:
+            whole = self.params["node_embed"].shape[0] * self.mesh.n_node
+            if np.shape(saved.get("node_embed"))[:1] == (whole,):
+                payload = dict(payload, params=self._own_rows(saved))
+        self.params = load_params_filtered(path, self.params,
+                                           payload=payload)
+        if payload.get("state") is not None:
+            self.state = tree_from_numpy(payload["state"], self.device)
+
+    def _hold(self, name: str, t: Optional[torch.Tensor]) -> None:
+        if t is not None:
+            self.held[name] = (tuple(t.shape), t.numel() * t.element_size())
 
     def resume_from(self, ckpt_path) -> int:
         """Restore params/state/opt_state, the step count and the dropout
@@ -521,15 +652,22 @@ class Trainer:
         mesh = self.mesh
         lead = mesh is None or mesh.lead
         resume, self._resume = self._resume, None
+        whole = params if resume is None else resume["params"]
+        rows = int(whole["node_embed"].shape[0])
+        # raises where the rows do not divide (the JAX trainer asserts)
+        self._rows = (mesh.shard_rows(rows)
+                      if mesh is not None and mesh.sharded else None)
         if resume is None:
-            self.params = copy_tree(params, dev)
+            self.params = copy_tree(self._own_rows(params), dev)
             self.state = copy_tree(state, dev)
             self.opt_state = self.tx.init(self.params)
             self.global_step = 0
         else:
-            self.params = tree_from_numpy(resume["params"], dev)
+            self.params = tree_from_numpy(self._own_rows(resume["params"]),
+                                          dev)
             self.state = tree_from_numpy(resume["state"] or {}, dev)
-            self.opt_state = self.tx.init(self.params, resume["opt_state"])
+            self.opt_state = self.tx.init(
+                self.params, self._own_moments(resume["opt_state"], whole))
             self.global_step = int(resume["meta"].get("global_step", 0))
             rng_state = resume.get("rng_state")
             if rng_state is not None:
@@ -539,13 +677,19 @@ class Trainer:
                         "the checkpoint's dropout generator state was saved "
                         f"on another device type than {dev.type}")
                 generator.set_state(rng_state)
-        rows = self.params["node_embed"].shape[0]
-        if mesh is not None and rows % mesh.n_node:
-            raise ValueError(f"{rows} table rows must divide over the "
-                             f"'node' mesh axis ({mesh.n_node})")
-        builder = PlanBuilder(rows)
+        table = self._table_leaf(self.params)
+        self.tx.norm = (functools.partial(global_norm, shard=(mesh, table))
+                        if self._rows is not None and table is not None
+                        else global_norm)
+        self.held = {}
+        self._hold("node_embed", self.params["node_embed"])
+        if table is not None:
+            self._hold("mu", self.opt_state["mu"][table])
+            self._hold("nu", self.opt_state["nu"][table])
+        builder = PlanBuilder(rows, self._rows)
         keep_mask = generator_keep_mask(
-            generator, None if mesh is None else (mesh.n_data, mesh.rank))
+            generator, None if mesh is None else (mesh.n_data,
+                                                  mesh.data_index))
         rng_np = np.random.default_rng(seed)
         n = len(train_data)
         drop_last = hp.batch_size <= n
@@ -608,10 +752,13 @@ class Trainer:
             self.metric_scores.append(val_metrics)
             if self.tb:
                 self.tb.add_scalars(val_metrics, epoch)
+            if self._saving:
+                # a collective on a node axis: every rank, every epoch
+                saved_params, saved_opt = self.whole_params()
             if self.ckpt:
                 self.ckpt.maybe_save(
-                    epoch, val_metrics, self.params, self.state,
-                    self.tx.host_state(self.opt_state),
+                    epoch, val_metrics, saved_params, self.state,
+                    self.tx.host_state(saved_opt),
                     global_step=self.global_step,
                     rng_state=generator.get_state().numpy())
             if log_fn and lead:
@@ -669,6 +816,7 @@ class Trainer:
             batch.update(batch_plans(builder, hp, batch["cc_ids"],
                                      anchors_np, batch["subgraph_idx"]))
             batch = device_batch(batch, dev)
+            self._hold("NP_sim", batch.get("NP_sim"))
             if hp.debug_mode:
                 loss = self._debug_step(batch, anchors_dev, keep_mask,
                                         n_valid)
@@ -690,11 +838,12 @@ class Trainer:
         recorded, and a non-finite loss or gradient raises
         FloatingPointError before the update (the counterpart of
         jax_debug_nans). The norm covers the trainable leaves (a frozen
-        table gets no gradient here; the JAX norm includes its)."""
+        table gets no gradient here; the JAX norm includes its), on a node
+        axis the whole table's (`global_norm`)."""
         loss, _, new_state, grads = loss_and_grads(
             self.model, self.tx, self.params, self.state, batch, anchors,
             keep_mask, self.mesh, n_valid)
-        value, norm = float(loss), float(global_norm(grads))
+        value, norm = float(loss), float(self.tx.norm(grads))
         if not (math.isfinite(value) and math.isfinite(norm)):
             raise FloatingPointError(
                 f"debug_mode: non-finite loss {value!r} or gradient norm "
@@ -838,11 +987,12 @@ class _FusedRun:
     """The device side of one fused fit (subgnn_tpu/train/loop.py:178-264,
     473-504, 548-628): both splits resident, anchors in static buffers,
     and a train and an eval StepGraph fed by copies into their static
-    buffers. On a mesh the splits are resident whole on every rank (JAX's
-    split_pspecs replicate them at n_node = 1); a train step takes the
-    rank's columns of the epoch order, with the gradients' all-reduce
-    inside its graph, and an eval step runs the rank's rows of the batch
-    and gathers the logits inside its graph."""
+    buffers. On a mesh the splits are resident on every rank, whole but
+    for the NP sims' node axis, of which a node rank keeps its columns
+    (JAX's split_pspecs); a train step takes the data index's columns of
+    the epoch order, with the node-group gathers and the gradients'
+    all-reduce inside its graph, and an eval step runs the data index's
+    rows of the batch and gathers the logits inside its graph."""
 
     def __init__(self, trainer: "Trainer", train_data, val_data,
                  anchors_by_split, compact: bool,
@@ -862,10 +1012,14 @@ class _FusedRun:
         self.compact, self.builder, self.rng_np = compact, builder, rng_np
         self.generator = generator
         self.keep_mask = generator_keep_mask(
-            generator, None if mesh is None else (mesh.n_data, mesh.rank))
+            generator, None if mesh is None else (mesh.n_data,
+                                                  mesh.data_index))
         self.train_arrays = Trainer._device_split(train_data, dev,
-                                                  not compact)
-        self.val_arrays = Trainer._device_split(val_data, dev, not compact)
+                                                  not compact, mesh)
+        self.val_arrays = Trainer._device_split(val_data, dev, not compact,
+                                                mesh)
+        trainer._hold("NP_sim", self.train_arrays.get("NP_sim"))
+        trainer._hold("NP_sim_val", self.val_arrays.get("NP_sim"))
         self.anchors = {s: device_batch(anchors_by_split[s], dev)
                         for s in ("train", "val")}
         B, n_val = hp.batch_size, len(val_data)
@@ -999,7 +1153,7 @@ class _FusedRun:
             batch.update(buf["extras"])
             logits, _ = tr.model(tr.params, tr.state, batch,
                                  self.anchors["val"], train=False,
-                                 cc_tables=self.val_cc)
+                                 cc_tables=self.val_cc, mesh=self.mesh)
             if self.mesh is not None:
                 logits = MX.all_gather_rows(logits, self.mesh)
             buf["loss"].copy_(tr.model.loss_fn(

@@ -35,14 +35,24 @@ def neigh_ids_for_batch(anchors, idx: np.ndarray) -> np.ndarray:
 
 
 class PlanBuilder:
-    """Builds per-batch plans with sticky, growth-only tile counts."""
+    """Builds per-batch plans with sticky, growth-only tile counts.
+    `row_range`: (lo, hi) of a node-axis rank's table rows, whose plans
+    route only the ids in them (make_gather_plan)."""
 
-    def __init__(self, n_rows: int):
+    def __init__(self, n_rows: int, row_range: Optional[tuple] = None):
         self.n_rows = int(n_rows)
+        self.row_range = row_range
         self.tiles: Dict[str, int] = {}
 
+    @property
+    def plan_rows(self) -> int:
+        """The rows a plan covers: the range's, else the whole table's."""
+        if self.row_range is None:
+            return self.n_rows
+        return self.row_range[1] - self.row_range[0]
+
     def _tiles(self, name: str, ids: np.ndarray) -> int:
-        need = tiles_needed(ids, self.n_rows)
+        need = tiles_needed(ids, self.n_rows, self.row_range)
         prev = self.tiles.get(name, 0)
         if need > prev:
             # growing: ~6% headroom so shuffle-to-shuffle variation does not
@@ -54,7 +64,8 @@ class PlanBuilder:
 
     def build(self, name: str, ids: np.ndarray) -> GatherPlan:
         return make_gather_plan(ids, self.n_rows,
-                                n_tiles=self._tiles(name, ids))
+                                n_tiles=self._tiles(name, ids),
+                                row_range=self.row_range)
 
     def build_stacked(self, name: str, ids_per_batch) -> GatherPlan:
         """One plan per batch, all with one tile count (the most any batch
@@ -62,12 +73,13 @@ class PlanBuilder:
         (n_batches, T, W), (n_batches, T, W) and (n_batches, T)."""
         t = max(self._tiles(name, ids) for ids in ids_per_batch)
         self.tiles[name] = t
-        plans = [make_gather_plan(ids, self.n_rows, n_tiles=t)
+        plans = [make_gather_plan(ids, self.n_rows, n_tiles=t,
+                                  row_range=self.row_range)
                  for ids in ids_per_batch]
         return GatherPlan(torch.stack([p.pos for p in plans]),
                           torch.stack([p.local for p in plans]),
                           torch.stack([p.block for p in plans]),
-                          self.n_rows)
+                          self.plan_rows)
 
 
 def epoch_plans(builder: Optional[PlanBuilder], hp, cc_ids: np.ndarray,

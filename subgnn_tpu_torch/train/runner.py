@@ -8,8 +8,8 @@ serving's rows on a worker thread) in the C++ host library. `run` trains
 through train/loop.py:Trainer on `split_data`, `sample_anchors` and
 `eval_cc_tables`, with the JAX run's train holdout, checkpoint restore,
 lr_find, per-epoch anchor resampling and resume, and tests the best
-checkpoint; on the data axis of a mesh when the hparams ask for one
-(mesh_data_axis, parallel/mesh.py), one process a rank.
+checkpoint; on a (data, node) mesh when the hparams ask for one
+(mesh_data_axis, mesh_node_axis, parallel/mesh.py), one process a rank.
 """
 from __future__ import annotations
 
@@ -385,12 +385,13 @@ class SubGNNPipeline:
         final_metric_scores.json, test_results.json), TensorBoard scalars
         (tb/) and the top-k checkpoints (checkpoints/).
 
-        On a mesh (the hparams' mesh_data_axis > 1, one process a rank of
-        the default process group: parallel/mesh.py) every rank runs this
-        whole method. Rank 0 alone precomputes, while the others wait and
-        then read its caches (the JAX run spreads its DTW and NP sims over
-        the mesh: ROADMAP Queue 1 item 11), and rank 0 alone writes files;
-        every rank trains its rows of each batch and tests the best
+        On a mesh (the hparams' mesh_data_axis x mesh_node_axis > 1, one
+        process a rank of the default process group: parallel/mesh.py)
+        every rank runs this whole method. Rank 0 alone precomputes, while
+        the others wait and then read its caches (the JAX run spreads its
+        DTW and NP sims over the mesh: ROADMAP Queue 1 item 11), and rank 0
+        alone writes files; every rank trains its rows of each batch (on a
+        node axis, with its shard of the table) and tests the best
         checkpoint.
 
         restore_path: filtered load of a checkpoint's weights and model
@@ -547,12 +548,8 @@ class SubGNNPipeline:
         if mesh is not None:
             best = MX.broadcast_object(best, mesh.group)
         if best:
-            payload = load_checkpoint(best)
-            trainer.params = load_params_filtered(best, trainer.params,
-                                                  payload=payload)
-            if payload.get("state") is not None:
-                trainer.state = tree_from_numpy(payload["state"],
-                                                trainer.device)
+            # the whole table in the file; a node rank takes its rows
+            trainer.load_weights(best)
         test_metrics = trainer.evaluate(self.split_data("test"),
                                         anchors["test"], "test")
         holdout_metrics = None

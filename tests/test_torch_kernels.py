@@ -475,3 +475,44 @@ def test_device_times_keeps_only_whole_calls(lost):
     assert ids == sorted(set(ids))
     assert whole_calls(calls, 40) == [a for a in calls if len(a) == 2]
     assert whole_calls([[], []], 1) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_node", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shard_gather_backward_on_the_kernel(cuda, n_node, dtype):
+    """A node-sharded table's gather (ops/embedding.py:shard_gather, the
+    node axis of parallel/mesh.py): each shard's gradient through its
+    shard plan on the kernel, one launch a shard, against the plain
+    version of the same plan, and the shards' forward terms summing to
+    table[ids] exactly. A third of the ids on PAD row 0, rows 4,100 a shard
+    at n_node 2 (not a multiple of the 128-row plan block)."""
+    from subgnn_tpu_torch.ops import embedding as E
+    rng = np.random.default_rng(n_node)
+    rows, D = 8200, 128
+    ids = rng.integers(0, rows, (64, 45))
+    ids[:, :15] = 0
+    table = torch.as_tensor(rng.normal(size=(rows, D)), device=cuda).to(dtype)
+    ids_t = torch.as_tensor(ids, device=cuda)
+    g = torch.as_tensor(rng.normal(size=ids.shape + (D,)),
+                        device=cuda).to(dtype)
+    n = rows // n_node
+    total = torch.zeros(ids.shape + (D,), dtype=dtype, device=cuda)
+    for k in range(n_node):
+        lo = k * n
+        plan = E.make_gather_plan(ids, rows, row_range=(lo, lo + n)).to(cuda)
+        shard = table[lo:lo + n].clone().requires_grad_()
+        before = E.segment_matmul.launches
+        out = E.shard_gather(shard, ids_t, lo, plan)
+        grad, = torch.autograd.grad(out, shard, g)
+        assert E.segment_matmul.launches == before + 1
+        total += out.detach()
+        flat = g.reshape(-1, D)
+        ref = E.segment_matmul_torch(flat, plan, n)
+        local = ids.reshape(-1) - lo
+        keep = (local >= 0) & (local < n)
+        tol = _row_tol(flat[torch.as_tensor(keep, device=cuda)],
+                       local[keep], n, ref)
+        torch.cuda.synchronize()
+        assert ((grad.float() - ref.float()).abs() <= tol).all(), k
+    assert torch.equal(total, table[ids_t])

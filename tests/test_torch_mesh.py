@@ -1,9 +1,10 @@
 """The data axis of the training mesh (subgnn_tpu_torch/parallel/mesh.py) on
-the CPU: ranks are processes spawned with torch.multiprocessing, joined in a
-gloo process group through a file:// store under tmp_path (no TCP port, so
-test workers never collide). Each spawned run does all of its jobs in one
-pair of processes, and the tests read its results (a module-scoped
-fixture); the one-process references run in the test process.
+the CPU (its node axis: tests/test_torch_node_axis.py): ranks are processes
+spawned with torch.multiprocessing, joined in a gloo process group through
+a file:// store under tmp_path (no TCP port, so test workers never
+collide). Each spawned run does all of its jobs in one pair of processes,
+and the tests read its results (a module-scoped fixture); the one-process
+references run in the test process.
 
 Counterparts of the JAX package's mesh tests (tests/test_parallel.py):
 streaming on 2 and 4 ranks, one of them with no valid row (:145), fused on
@@ -66,9 +67,10 @@ class _Streaming(Trainer):
 
 def _fit(over, n_train=16, n_val=8, streaming=False, mesh=None,
          weights=None, ckpt_dir=None, checkpoint_k=3, resume=None,
-         start_epoch=0):
-    """A Trainer.fit on build_training_fixture (CPU): its metrics, params,
-    state, mode and collective counts."""
+         start_epoch=0, compact=None):
+    """A Trainer.fit on build_training_fixture (CPU): its metrics, params
+    (the whole table on a node axis), state, mode, what it held and its
+    collective counts. `compact`: force the compact sims on or off."""
     model, hp, params, state, data, anchors, eval_cc = build_training_fixture(
         n_train=n_train, n_val=n_val, hp_overrides=over, device="cpu")
     if weights is not None:
@@ -76,18 +78,23 @@ def _fit(over, n_train=16, n_val=8, streaming=False, mesh=None,
     cls = _Streaming if streaming else Trainer
     tr = cls(model, hp, eval_cc_tables=eval_cc, device="cpu", mesh=mesh,
              ckpt_dir=ckpt_dir, checkpoint_k=checkpoint_k)
+    tr.compact_sims = compact
     if resume is not None:
         assert tr.resume_from(resume) == start_epoch
     MX.reset_counts()
     tr.fit(params, state, data["train"], data["val"], anchors, seed=0,
            log_fn=None, start_epoch=start_epoch)
+    counts = {"grad_reduces": MX.all_reduce_sum_.calls,
+              "bn_reduces": MX.all_reduce_bn_stats.calls,
+              "gathers": MX.all_gather_rows.calls,
+              "node_sums": MX.node_sum.calls,
+              "node_sum_bytes": MX.node_sum.bytes}
+    whole, _ = tr.whole_params()
     return {"metrics": [{k: m[k] for k in METRIC_KEYS + ("epoch",)}
                         for m in tr.metric_scores],
-            "params": to_numpy(tr.params), "state": to_numpy(tr.state),
-            "fused": tr.fused, "steps": tr.global_step,
-            "grad_reduces": MX.all_reduce_sum_.calls,
-            "bn_reduces": MX.all_reduce_bn_stats.calls,
-            "gathers": MX.all_gather_rows.calls}
+            "params": to_numpy(whole), "state": to_numpy(tr.state),
+            "fused": tr.fused, "steps": tr.global_step, "held": tr.held,
+            "grad_norms": tr._grad_norms, **counts}
 
 
 def _job_api(rank, tmp, mesh):
@@ -98,8 +105,8 @@ def _job_api(rank, tmp, mesh):
     for n in (4, 1):
         with pytest.raises(ValueError):
             MX.make_device_mesh(n, device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
-        MX.make_device_mesh(1, 2, device="cpu")
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        MX.make_device_mesh(2, 2, device="cpu")
     return out
 
 
@@ -172,25 +179,31 @@ JOBS = {"api": _job_api, "stream": _job_stream,
         "jax": _job_jax, "resume": _job_resume, "run": _job_run}
 
 
-def _rank_main(rank, world, tmp, jobs):
-    """One spawned rank: join the gloo group, run the jobs, pickle each
-    job's result to <tmp>/<job>.<rank>.pkl."""
+def _rank_main(rank, world, tmp, jobs, n_node):
+    """One spawned rank: join the gloo group, make the (world / n_node,
+    n_node) mesh, run the jobs ({name: function of (rank, tmp, mesh)}),
+    pickle each job's result to <tmp>/<name>.<rank>.pkl."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             world_size=world, rank=rank)
     try:
-        mesh = MX.make_device_mesh(world, device="cpu")
-        for job in jobs:
-            out = JOBS[job](rank, tmp, mesh)
-            with open(Path(tmp) / f"{job}.{rank}.pkl", "wb") as f:
+        mesh = MX.make_device_mesh(world // n_node, n_node, device="cpu")
+        for name, job in jobs.items():
+            out = job(rank, tmp, mesh)
+            with open(Path(tmp) / f"{name}.{rank}.pkl", "wb") as f:
                 pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn(world, tmp, jobs):
-    """Run `jobs` on `world` spawned ranks; {job: [result of each rank]}."""
-    ctx = mp.start_processes(_rank_main, args=(world, str(tmp), jobs),
+def _spawn(world, tmp, jobs, n_node=1):
+    """Run `jobs` (names of JOBS, or {name: module-level function}) on
+    `world` spawned ranks of a (world / n_node, n_node) mesh; {job: [result
+    of each rank]}."""
+    if not isinstance(jobs, dict):
+        jobs = {name: JOBS[name] for name in jobs}
+    ctx = mp.start_processes(_rank_main,
+                             args=(world, str(tmp), jobs, n_node),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     while not ctx.join(timeout=5):
@@ -401,8 +414,8 @@ def _through(entry, over, tmp_path):
                                    "cli.train"])
 @pytest.mark.parametrize("over,match", [
     (dict(mesh_data_axis=2), "exceeds the 1 ranks"),
-    (dict(mesh_node_axis=2), "Queue 1 item 10"),
-    (dict(mesh_data_axis=2, mesh_node_axis=2), "Queue 1 item 10"),
+    (dict(mesh_node_axis=2), "exceeds the 1 ranks"),
+    (dict(mesh_data_axis=2, mesh_node_axis=2), "exceeds the 1 ranks"),
 ], ids=["data_axis_past_world", "node_axis", "both_axes"])
 def test_mesh_knobs_refused_not_ignored(entry, over, match, tmp_path):
     """A hyperparams.json written for a JAX mesh run raises where the port
