@@ -102,6 +102,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 the table); a fused fit on those ranks refused; (c) the
                 device bytes of the table and its moments, and of a batch's
                 NP sims, at (1, 1) and on a rank of (1, 2): half;
+  4e. precompute mesh — SubGNNPipeline.precompute(mesh=) on phase 4's
+                task (the NP-sim CC-min on each rank's column block of the
+                memory-mapped path matrix, the DTW on each rank's block of
+                comps, both gathered; rank 0 alone writing), each into a
+                fresh similarities directory: (a) an NCCL group of one rank
+                in this process: every array bit-equal to phase 4's, exactly
+                6 DTW launches, the same file names; (b) two gloo ranks
+                spawned on this card: each rank's border sets, NP sims, pool
+                and walks bit-equal to phase 4's, its structure sims within
+                STRUC_SIM_TOL (bits equal printed), 6 DTW launches on each
+                rank and the pairs its wrapper counted equal to its blocks'
+                (their sum (a)'s count), only rank 0 writing (phase 4's file
+                names), the gathers' bytes exactly 4 x n_sub x C x (n_nodes
+                + 2 x n_anchors) over the splits, and the stage times beside
+                phase 4's; (c) on those ranks, at BFS_SIZES[0] nodes,
+                shortest_path_matrix(mesh=) with partition 'sources' and
+                'graph' equal to the C++ matrix, each's seconds, levels and
+                frontier-exchange bytes (checked exactly against the levels
+                the matrix implies); that matrix scattered from rank 0 in
+                column blocks (scatter_world_cols) on (a)'s and (b)'s
+                meshes, each block equal; then, in this process, one DTW
+                launch at each rank's block of the train split's internal
+                side timed alone against the launch on all its comps
+                (device_ms, kernel_block_warps);
   5. run      — whole training runs through the port's CLIs, in-process
                 (main() with sys.argv set) on -device cuda, at the flagship
                 widths (lin_dropout 0.1, anchor resampling) on a fresh task
@@ -180,7 +204,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 Each path's launch counts are zeroed just before it and read just after
 (the node axis's in each spawned rank, in the segment_matmul record's
 `node_axis`):
-the DTW record's launches are the 4 serving requests', segment_matmul's are
+the DTW record's launches are the 4 serving requests' (its
+`mesh_precompute` holds 4e's launches and pairs a rank, as each rank's
+wrapper counted them, and the device_ms of one launch at each rank's block
+shape, made in this process), segment_matmul's are
 Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset,
 run and prepare phases' runs are counted on their own, for their checks;
 the prepare runs' counts are in the record's `prepare_launches`, its time
@@ -1090,6 +1117,341 @@ def node_phase(pipe, seed: int, root: Path, benches, gen, dev):
     print(f"[node] phase seconds {time.perf_counter() - t_phase:.2f}")
     return err, {"launches_per_rank": launches[False],
                  "shard_device_ms": shard_ms}
+
+
+PRE_WORLD = 2               # 4e (b), (c): gloo ranks on the one card
+PRE_BFS_SEED = 5            # 4e (c): its graph's generator is seed + this
+
+
+def precompute_bytes(pipe):
+    """The precompute gathers' bytes (all_gather_world) of one precompute
+    of `pipe`'s task with its path matrix on disk: a split's NP sims, 4 x
+    n_sub x C x n_nodes, and its structure sims, 4 x n_sub x C x n_anchors
+    for each side."""
+    n_anchors = pipe.structure_anchors.shape[0]
+    return sum(4 * cc.shape[0] * cc.shape[1]
+               * (pipe.graph.n_nodes + 2 * n_anchors)
+               for cc in pipe.cc_ids.values())
+
+
+def mesh_precompute(pipe, mesh):
+    """pipe.precompute(mesh=mesh, recompute=True): its seconds, stage
+    seconds, DTW launches and pairs as the kernel's wrapper counted them
+    in this process, the pairs this rank's comp blocks should hold
+    (`world_block` of each split's comps x 2 sides x the anchors), the
+    precompute collectives' {name: (calls, bytes)} and the names of the
+    files it saved."""
+    import torch
+    from subgnn_tpu_torch.ops import dtw as kdtw
+    from subgnn_tpu_torch.parallel import mesh as MX
+    saved, save = [], np.save
+
+    def counted_save(path, arr, *a, **k):
+        saved.append(Path(path).name)
+        save(path, arr, *a, **k)
+
+    kdtw.dtw_distance_grouped.launches = 0
+    kdtw.dtw_distance_grouped.pairs = 0
+    MX.reset_counts()
+    np.save = counted_save
+    try:
+        t0 = time.perf_counter()
+        pipe.precompute(recompute=True, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        np.save = save
+    na = pipe.structure_anchors.shape[0]
+    expect = 0
+    for cc in pipe.cc_ids.values():
+        lo, hi = mesh.world_block(cc.shape[0] * cc.shape[1])
+        expect += 2 * (hi - lo) * na
+    return {"secs": secs, "timings": dict(pipe.precompute_timings),
+            "launches": kdtw.dtw_distance_grouped.launches,
+            "pairs": kdtw.dtw_distance_grouped.pairs,
+            "pairs_expected": expect,
+            "counts": {h.__name__: (h.calls, h.bytes)
+                       for h in MX.PRECOMPUTE_COLLECTIVES},
+            "saved": sorted(saved)}
+
+
+def precompute_diff(got, ref):
+    """(border sets, NP sims, pool and walks all bit-equal; the structure
+    sims' max abs diff; their bits equal) of two precomputed pipelines."""
+    from subgnn_tpu_torch.train.runner import SPLITS
+    exact = all(np.array_equal(got.np_sim[s], ref.np_sim[s])
+                and np.array_equal(got.border[s], ref.border[s])
+                for s in SPLITS) and all(
+        np.array_equal(getattr(got, k), getattr(ref, k))
+        for k in ("structure_anchors", "int_walks", "bor_walks"))
+    worst, same = 0.0, True
+    for s in SPLITS:
+        for k in ("int_s_sim", "bor_s_sim"):
+            a, b = getattr(got, k)[s], getattr(ref, k)[s]
+            worst = max(worst, float(np.abs(a - b).max()))
+            same = same and np.array_equal(a, b)
+    return exact, worst, same
+
+
+def scatter_check(want, mesh):
+    """scatter_world_cols of rank 0's `want` (n, n): (this rank's block
+    equal to its columns of `want`, the scatter's (calls, bytes))."""
+    from subgnn_tpu_torch.parallel import mesh as MX
+    n = len(want)
+    lo, hi = mesh.world_block(n)
+    MX.reset_counts()
+    block = MX.scatter_world_cols(want if mesh.lead else None, n, n, mesh)
+    equal = np.array_equal(block.cpu().numpy(),
+                           want[:, lo:hi].astype(np.float32))
+    return equal, (MX.scatter_world_cols.calls, MX.scatter_world_cols.bytes)
+
+
+def precompute_rank(rank, store, rc, ref_rc, hp, bfs_dir, out):
+    """4e (b), (c): one of PRE_WORLD gloo ranks of a (PRE_WORLD, 1) mesh on
+    cuda:0 (spawned): (b) phase 4's precompute on the mesh into a fresh
+    similarities directory, against phase 4's caches; (c) the BFS of
+    bfs_dir's graph with its sources and with its graph partitioned,
+    against its C++ matrix, and that matrix scattered from rank 0 in
+    column blocks. Writes <out>.<rank>.pt."""
+    sys.path.insert(0, str(HERE))
+    import torch
+    import torch.distributed as dist
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.precompute.shortest_paths import \
+        shortest_path_matrix
+    from subgnn_tpu_torch.train.runner import SubGNNPipeline
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=PRE_WORLD, rank=rank)
+    try:
+        mesh = MX.make_device_mesh(PRE_WORLD, device="cuda:0")
+        pipe = SubGNNPipeline(rc, hp, device="cuda:0").load()
+        result = mesh_precompute(pipe, mesh)
+        ref = SubGNNPipeline(ref_rc, hp, device="cuda:0").load().precompute(
+            recompute=False)
+        result["exact"], result["struc_diff"], result["struc_same"] = \
+            precompute_diff(pipe, ref)
+        want = np.load(Path(bfs_dir) / "matrix.npy")
+        graph = CSRGraph.from_edges(np.load(Path(bfs_dir) / "edges.npy"),
+                                    n_nodes=len(want))
+        result["bfs"] = {}
+        for partition in ("sources", "graph"):
+            MX.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = shortest_path_matrix(graph, mesh=mesh, partition=partition)
+            secs = time.perf_counter() - t0
+            result["bfs"][partition] = {
+                "secs": secs, "equal": bool(np.array_equal(got, want)),
+                "counts": {h.__name__: (h.calls, h.bytes)
+                           for h in MX.PRECOMPUTE_COLLECTIVES}}
+        result["scatter"] = scatter_check(want, mesh)
+        torch.save(result, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def precompute_mesh_phase(pipe, seed: int, root: Path):
+    """Phase 4e: SubGNNPipeline.precompute(mesh=) on phase 4's task, (a) on
+    an NCCL group of one rank in this process and (b) on PRE_WORLD gloo
+    ranks on this card, against phase 4's precompute; (c) on those ranks,
+    the BFS with its sources and with its graph partitioned against the
+    C++ matrix; on both, that matrix scattered from rank 0 in column
+    blocks (`scatter_world_cols`: a path matrix built without a file).
+    Returns the DTW record's `mesh_precompute` entry."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    from subgnn_tpu_torch.kernel_times import device_times
+    from subgnn_tpu_torch.ops import dtw as kdtw
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.precompute.degree import degree_sequences
+    from subgnn_tpu_torch.precompute.shortest_paths import (
+        DEVICE_BFS_CHUNK, shortest_path_matrix)
+    from subgnn_tpu_torch.train.runner import SPLITS, SubGNNPipeline
+
+    t_phase = time.perf_counter()
+    names = sorted(p.name for p in pipe.rc.similarities_path().iterdir())
+    gathers = {"all_gather_world": (len(SPLITS) * 3, precompute_bytes(pipe)),
+               "all_reduce_world_": (0, 0), "scatter_world_cols": (0, 0)}
+    one = json.dumps({k: round(v, 4)
+                      for k, v in pipe.precompute_timings.items()})
+
+    def rc_into(name):
+        return dataclasses.replace(pipe.rc,
+                                   similarities_path_override=root / name)
+
+    def check_run(res, tag, writes):
+        check(res["launches"] == 2 * len(SPLITS), f"precompute mesh phase "
+              f"{tag}: {res['launches']} DTW launches, expected "
+              f"{2 * len(SPLITS)} (one per split and side)")
+        check(res["pairs"] == res["pairs_expected"], f"precompute mesh "
+              f"phase {tag}: the DTW launches took {res['pairs']} pairs, "
+              f"its blocks of comps hold {res['pairs_expected']}")
+        check(res["counts"] == gathers, f"precompute mesh phase {tag}: "
+              f"collectives {res['counts']}, expected {gathers}")
+        check(res["saved"] == (names if writes else []), f"precompute mesh "
+              f"phase {tag}: saved {res['saved']}, phase 4 wrote {names}")
+
+    # (c)'s graph and its C++ matrix, also scattered in (a) and (b)
+    n = BFS_SIZES[0]
+    brng = np.random.default_rng(seed + PRE_BFS_SEED)
+    edges = brng.integers(1, n + 1, (n * AVG_DEGREE // 2, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    t0 = time.perf_counter()
+    want = shortest_path_matrix(CSRGraph.from_edges(edges, n_nodes=n),
+                                backend="host")
+    cpp_secs = time.perf_counter() - t0
+    scatter_bytes = 4 * n * n
+
+    # (a) one NCCL rank in this process
+    dist.init_process_group("nccl",
+                            init_method=f"file://{root}/nccl_pre_store",
+                            world_size=1, rank=0)
+    try:
+        mesh = MX.make_device_mesh(1, device=pipe.device)
+        p1 = SubGNNPipeline(rc_into("sims_mesh1"), pipe.hp,
+                            device=pipe.device).load()
+        a = mesh_precompute(p1, mesh)
+        a["scatter"] = scatter_check(want, mesh)
+    finally:
+        dist.destroy_process_group()
+    exact, worst, same = precompute_diff(p1, pipe)
+    del p1
+    print(f"[precompute mesh] (a) NCCL world 1: {a['secs']:.2f}s, stages "
+          f"(s) {json.dumps(a['timings'])} (phase 4, no mesh: {one}); DTW "
+          f"launches {a['launches']}, pairs counted {a['pairs']} (its "
+          f"block: {a['pairs_expected']}); collectives "
+          f"{a['counts']} (expected {gathers}); vs phase 4: border sets, "
+          f"NP sims, pool, walks bit-equal {exact}, structure sims max abs "
+          f"diff {worst!r}, bits equal {same}")
+    check(exact and same, "precompute mesh phase (a): one NCCL rank is not "
+                          "bit-equal to phase 4's precompute")
+    check_run(a, "(a)", True)
+    check(sorted(p.name for p in (root / "sims_mesh1").iterdir()) == names,
+          "precompute mesh phase (a): another file set than phase 4's")
+    print(f"[precompute mesh] (a) the {n}-node matrix scattered on one NCCL "
+          f"rank: equal {a['scatter'][0]}, (calls, bytes) {a['scatter'][1]}")
+    check(a["scatter"] == (True, (1, scatter_bytes)), "precompute mesh phase "
+          "(a): the scattered matrix differs")
+
+    # (b), (c): PRE_WORLD gloo ranks on this card
+    bfs_dir = root / "bfs_mesh"
+    bfs_dir.mkdir()
+    np.save(bfs_dir / "edges.npy", edges)
+    np.save(bfs_dir / "matrix.npy", want)
+    out = root / "pre_gloo"
+    t0 = time.perf_counter()
+    mp.start_processes(precompute_rank,
+                       args=(str(root / "pre_gloo_store"),
+                             rc_into("sims_mesh2"), pipe.rc, pipe.hp,
+                             str(bfs_dir), str(out)),
+                       nprocs=PRE_WORLD, start_method="spawn")
+    spawn_secs = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}.pt", weights_only=False)
+             for r in range(PRE_WORLD)]
+    for r, res in enumerate(ranks):
+        print(f"[precompute mesh] (b) rank {r} of {PRE_WORLD} gloo ranks on "
+              f"cuda:0: {res['secs']:.2f}s, stages (s) "
+              f"{json.dumps(res['timings'])} (phase 4, no mesh: {one}); DTW "
+              f"launches {res['launches']}, pairs counted {res['pairs']} "
+              f"(its block: {res['pairs_expected']}); "
+              f"collectives {res['counts']} (expected {gathers}); files "
+              f"saved {len(res['saved'])}; vs phase 4: border sets, NP sims, "
+              f"pool, walks bit-equal {res['exact']}, structure sims max abs "
+              f"diff {res['struc_diff']!r} (tol {STRUC_SIM_TOL}), bits equal "
+              f"{res['struc_same']}")
+        check(res["exact"], f"precompute mesh phase (b) rank {r}: the NP "
+                            f"sims or host arrays differ from phase 4's")
+        check(res["struc_diff"] <= STRUC_SIM_TOL, f"precompute mesh phase "
+              f"(b) rank {r}: structure sims disagree with phase 4's")
+        check_run(res, f"(b) rank {r}", r == 0)
+    check(sorted(p.name for p in (root / "sims_mesh2").iterdir()) == names,
+          "precompute mesh phase (b): another file set than phase 4's")
+    check(sum(r["pairs"] for r in ranks) == a["pairs"], "precompute mesh "
+          "phase (b): the pairs the ranks' DTW launches took do not add up "
+          "to the one rank's of (a)")
+    print(f"[precompute mesh] (b) the {n}-node matrix scattered from rank 0 "
+          f"(staged on the host): each rank's block equal "
+          f"{[r['scatter'][0] for r in ranks]}, (calls, bytes) "
+          f"{ranks[0]['scatter'][1]}")
+    for r, res in enumerate(ranks):
+        check(res["scatter"] == (True, (1, scatter_bytes)), f"precompute "
+              f"mesh phase (b) rank {r}: its scattered block differs")
+
+    # (c): levels and bytes from the C++ matrix (1 + a chunk's largest hop
+    # count levels, each a 4 x S x n_pad frontier exchange)
+    chunk = DEVICE_BFS_CHUNK
+    n_pad = -(-n // PRE_WORLD) * PRE_WORLD
+    levels = [1 + int(want[s:s + chunk].max()) for s in range(0, n, chunk)]
+    frontier = sum(lv * 4 * min(chunk, n - i * chunk) * n_pad
+                   for i, lv in enumerate(levels))
+    q = -(-chunk // PRE_WORLD) * PRE_WORLD
+    n_chunks = -(-n // q)
+    expect = {"sources": {"all_gather_world": (n_chunks,
+                                               n_chunks * 4 * q * n),
+                          "all_reduce_world_": (0, 0),
+                          "scatter_world_cols": (0, 0)},
+              "graph": {"all_gather_world": (sum(levels) + 1,
+                                             frontier + 4 * n * n_pad),
+                        "all_reduce_world_": (sum(levels), 8 * sum(levels)),
+                        "scatter_world_cols": (0, 0)}}
+    for partition, counts in expect.items():
+        res = [r["bfs"][partition] for r in ranks]
+        print(f"[precompute mesh] (c) BFS at {n} nodes, {len(edges)} edges, "
+              f"partition {partition!r} on {PRE_WORLD} gloo ranks: seconds "
+              f"{[round(x['secs'], 4) for x in res]} (C++ all threads, one "
+              f"process: {cpp_secs:.4f}); levels {sum(levels)} in "
+              f"{len(levels)} chunks; collectives {res[0]['counts']}"
+              + (f"; frontier-exchange bytes {frontier}"
+                 if partition == "graph" else "")
+              + f"; equal to the C++ matrix {[x['equal'] for x in res]}")
+        for r, x in enumerate(res):
+            check(x["equal"], f"precompute mesh phase (c) rank {r}: the "
+                  f"{partition} BFS differs from the C++ matrix")
+            check(x["counts"] == counts, f"precompute mesh phase (c) rank "
+                  f"{r} {partition}: collectives {x['counts']}, expected "
+                  f"{counts}")
+
+    # the DTW launch at each rank's block of comps (the train split's
+    # internal side), made here after the ranks have exited and timed
+    # alone, against the launch on all the comps: the ranks shared the card
+    # while they ran, so their own launches are not what one costs
+    cc = pipe.cc_ids["train"]
+    flat = cc.reshape(-1, cc.shape[2])
+    ai, ali = degree_sequences(pipe.graph, pipe.structure_anchors, True)
+    na = len(ai)
+
+    def launch(lo, hi):
+        ci, li = degree_sequences(pipe.graph, flat[lo:hi], True)
+        args = [torch.as_tensor(x, device="cuda") for x in (ci, li, ai, ali)]
+        return lambda: kdtw.dtw_distance_grouped(*args, 1, hi - lo, na)
+
+    w = -(-len(flat) // PRE_WORLD)
+    blocks = [(min(r * w, len(flat)), min(r * w + w, len(flat)))
+              for r in range(PRE_WORLD)]
+    one_ms = device_times(launch(0, len(flat)))["device_ms"]
+    rank_ms = [device_times(launch(lo, hi))["device_ms"]
+               for lo, hi in blocks]
+    warps = [kdtw.kernel_block_warps(hi - lo, na)
+             for lo, hi in [(0, len(flat))] + blocks]
+    print(f"[precompute mesh] DTW, train split internal side ({len(flat)} "
+          f"comps x {na} anchors): one launch device_ms {one_ms!r} "
+          f"(kernel_block_warps {warps[0]}); one launch at each rank's "
+          f"block {blocks}, in this process, device_ms {rank_ms!r} "
+          f"(kernel_block_warps {warps[1:]}); "
+          f"spawn to exit {spawn_secs:.2f}s")
+    print(f"[precompute mesh] phase seconds "
+          f"{time.perf_counter() - t_phase:.2f}")
+    return {"launches_per_rank": [r["launches"] for r in ranks],
+            "pairs_per_rank": [r["pairs"] for r in ranks],
+            "ms": rank_ms, "one_process_ms": one_ms,
+            "ms_of": "device_ms of one launch at each rank's block of the "
+                     "train split's internal-side comps, made alone in the "
+                     "parent process after the ranks exited"}
 
 
 
@@ -2024,6 +2386,9 @@ def main(argv=None) -> int:
         # ------------------------------------------------------- 4d. node
         err, node = node_phase(dpipe, args.seed, root, benches, gen, dev)
         seg_err = max(seg_err, err)
+
+        # ----------------------------------------------- 4e. precompute mesh
+        mesh_pre = precompute_mesh_phase(dpipe, args.seed, root)
         del dpipe
 
         # ---------------------------------------------------------- 5. run
@@ -2042,7 +2407,8 @@ def main(argv=None) -> int:
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": None,
                   "bits_equal": req_same, "device_ms": dev_t["device_ms"],
-                  "span_ms": dev_t["span_ms"], "call_ms": ms}
+                  "span_ms": dev_t["span_ms"], "call_ms": ms,
+                  "mesh_precompute": mesh_pre}
 
     # --------------------------------------------------------- 7. training
     # 20 bf16 steps at B=1280, timed in runs of 5 (before the CPU recompute

@@ -173,8 +173,9 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
     to group g = p // (nc*na), comp g*nc + r//na, anchor g*na + r%na with
     r = p % (nc*na). Lengths must not exceed the padded widths. CUDA tensors
     launch csrc/dtw.cu (any Lc and La; above MAX_STRIP_LA with a global
-    scratch of `strip_scratch_warps` x La floats) and add one to
-    `dtw_distance_grouped.launches`; CPU tensors run the plain version.
+    scratch of `strip_scratch_warps` x La floats), add one to
+    `dtw_distance_grouped.launches` and G*nc*na to its `pairs`; CPU
+    tensors run the plain version.
     """
     _check(comp_seqs, comp_lens, anchor_seqs, anchor_lens, G, nc, na)
     dev = comp_seqs.device
@@ -202,7 +203,9 @@ def dtw_distance_grouped(comp_seqs: torch.Tensor, comp_lens: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"dtw kernel launch failed: cudaError_t {err}")
     dtw_distance_grouped.launches += 1
+    dtw_distance_grouped.pairs += out.numel()
     return out
 
 
 dtw_distance_grouped.launches = 0
+dtw_distance_grouped.pairs = 0

@@ -37,7 +37,13 @@ group its sum is over:
   * `node_sum`: the masked table and NP-similarity gathers (node group);
   * `all_reduce_node_`: the table shard's squared gradient norm, and the
     whole table and moments a checkpoint holds (`all_gather_node`, node
-    group).
+    group);
+  * the precompute's, over the whole group (`Mesh.world_block`: JAX's
+    precompute shards over every device at once): `all_gather_world`
+    (the NP sims' column blocks, the structure sims' comp blocks, the BFS
+    rows and frontiers), `all_reduce_world_` (the partitioned BFS's
+    new-node count) and `scatter_world_cols` (rank 0's path matrix, a
+    column block a rank).
 
 Each helper counts its calls and the bytes it reduces (`calls`, `bytes`),
 as a kernel wrapper counts its launches; a captured step adds them per
@@ -127,6 +133,16 @@ class Mesh:
                              f"({self.n_node})")
         n = n_cols // self.n_node
         return self.node_index * n, (self.node_index + 1) * n
+
+    def world_block(self, n: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's block of an axis of length `n` split
+        over every rank of the mesh in rank order (JAX's flattened device
+        order, how the precompute shards over both axes at once): blocks of
+        ceil(n / world), the last ones cut and possibly empty, as JAX pads
+        the axis to a multiple of the device count."""
+        w = -(-n // self.world)
+        lo = min(self.rank * w, n)
+        return lo, min(lo + w, n)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} of {self.world}, "
@@ -265,6 +281,23 @@ def _count(helper, t: torch.Tensor) -> None:
     helper.bytes += t.numel() * t.element_size()
 
 
+def _gather_by_sum(block: torch.Tensor, lo: int, n: int, dim: int, group,
+                   helper) -> torch.Tensor:
+    """The whole tensor, of length `n` along `dim`, on every rank of
+    `group` from each rank's `block` of it at [lo, lo + its length): an
+    all-reduce of a zero buffer holding this rank's block in its place
+    (exact: every other term is 0), which gloo takes for CUDA tensors as
+    NCCL does, and a CUDA graph captures. Counted under `helper`: the
+    whole tensor's bytes."""
+    shape = list(block.shape)
+    shape[dim] = n
+    full = block.new_zeros(shape)
+    full.narrow(dim, lo, block.shape[dim]).copy_(block)
+    dist.all_reduce(full, group=group)
+    _count(helper, full)
+    return full
+
+
 def _sum_flat_(helper, tensors: List[torch.Tensor], group) -> None:
     if not tensors:
         return
@@ -347,12 +380,10 @@ def all_gather_node(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The whole (n_node * rows, ...) tensor from each node rank's (rows,
     ...) shard, in node order, on every rank of the node group: an
     all-reduce of a zero buffer holding this rank's shard in its place
-    (exact, as all_gather_rows)."""
+    (`_gather_by_sum`, counted under all_reduce_node_)."""
     n = shard.shape[0]
-    full = shard.new_zeros((n * mesh.n_node,) + tuple(shard.shape[1:]))
-    full[mesh.node_index * n:(mesh.node_index + 1) * n] = shard
-    all_reduce_node_([full], mesh)
-    return full
+    return _gather_by_sum(shard, mesh.node_index * n, n * mesh.n_node, 0,
+                          mesh.node_group, all_reduce_node_)
 
 
 def bn_moments(flat: torch.Tensor, mesh: Mesh):
@@ -370,19 +401,68 @@ def bn_moments(flat: torch.Tensor, mesh: Mesh):
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """(n_data * b, ...) from each data index's (b, ...) rows, in data
     order, on every rank: an all-reduce over the data group of a zero
-    buffer holding this rank's rows in its place (exact: every other term
-    is 0), which gloo takes for CUDA tensors as NCCL does, and a CUDA graph
-    captures."""
+    buffer holding this rank's rows in its place (`_gather_by_sum`)."""
     b = x.shape[0]
-    full = x.new_zeros((b * mesh.n_data,) + tuple(x.shape[1:]))
-    full[mesh.data_index * b:(mesh.data_index + 1) * b] = x
-    dist.all_reduce(full, group=mesh.data_group)
-    _count(all_gather_rows, full)
-    return full
+    return _gather_by_sum(x, mesh.data_index * b, b * mesh.n_data, 0,
+                          mesh.data_group, all_gather_rows)
+
+
+# --------------------------------------------- precompute, the whole world
+# The precompute shards over every rank (`Mesh.world_block`), never over
+# one axis alone; each helper runs over the whole group.
+
+def all_gather_world(block: torch.Tensor, n: int, mesh: Mesh,
+                     dim: int = 0) -> torch.Tensor:
+    """The whole tensor, of length `n` along `dim`, from each rank's
+    `world_block(n)` of it, on every rank: an all-reduce over the whole
+    group of a zero buffer holding this rank's block in its place
+    (`_gather_by_sum`). Counted bytes: the whole tensor's, 4 x n x the
+    other dims for float32 or int32 (the NP sims of a split: 4 x n_sub x C
+    x n_nodes; its structure sims of a side: 4 x n_sub x C x n_anchors)."""
+    lo, hi = mesh.world_block(n)
+    if block.shape[dim] != hi - lo:
+        raise ValueError(f"rank {mesh.rank}'s block of {n} along dim {dim} "
+                         f"is [{lo}, {hi}), got {block.shape[dim]} rows")
+    return _gather_by_sum(block, lo, n, dim, mesh.group, all_gather_world)
+
+
+def all_reduce_world_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Sum each tensor over the whole group, in place (one buffer): the
+    partitioned BFS's new-node count, JAX's psum over every device."""
+    _sum_flat_(all_reduce_world_, tensors, mesh.group)
+
+
+def scatter_world_cols(mat, n_rows: int, n_cols: int,
+                       mesh: Mesh) -> torch.Tensor:
+    """This rank's `world_block(n_cols)` of the columns of rank 0's
+    (n_rows, n_cols) array `mat` (None on the other ranks), float32 on
+    mesh.device: one scatter of blocks padded to ceil(n_cols / world)
+    columns, staged on the host for gloo (which scatters only CPU
+    tensors). Counted bytes: 4 x n_rows x that width x world."""
+    lo, hi = mesh.world_block(n_cols)
+    w = -(-n_cols // mesh.world)
+    stage = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+    block = torch.empty(n_rows, w, dtype=torch.float32, device=stage)
+    parts = None
+    if mesh.lead:
+        parts = []
+        for r in range(mesh.world):
+            part = torch.zeros(n_rows, w, dtype=torch.float32, device=stage)
+            cols = np.asarray(mat[:, r * w:(r + 1) * w], dtype=np.float32)
+            part[:, :cols.shape[1]] = torch.from_numpy(cols)
+            parts.append(part)
+    dist.scatter(block, parts, group_src=0, group=mesh.group)
+    scatter_world_cols.calls += 1
+    scatter_world_cols.bytes += block.numel() * block.element_size() \
+        * mesh.world
+    return block[:, :hi - lo].to(mesh.device).contiguous()
 
 
 COLLECTIVES = (all_reduce_sum_, all_reduce_bn_stats, all_gather_rows,
-               node_sum, all_reduce_node_)
+               node_sum, all_reduce_node_, all_gather_world,
+               all_reduce_world_, scatter_world_cols)
+PRECOMPUTE_COLLECTIVES = (all_gather_world, all_reduce_world_,
+                          scatter_world_cols)
 for _helper in COLLECTIVES:
     _helper.calls = 0
     _helper.bytes = 0

@@ -39,8 +39,10 @@ from ..precompute.shortest_paths import (shortest_path_matrix,
 from ..precompute.similarities import (border_set_path, cached,
                                        compute_shortest_path_similarities,
                                        compute_structure_similarities,
-                                       np_sim_path, struc_patches_path,
-                                       struc_sim_path, struc_walks_path,
+                                       np_sim_path, path_column_block,
+                                       shortest_path_similarities_mesh,
+                                       struc_patches_path, struc_sim_path,
+                                       struc_walks_path,
                                        structure_similarities_both)
 from ..sampling.anchors import (init_anchors_neighborhood,
                                 init_anchors_pos_ext, init_anchors_pos_int,
@@ -140,30 +142,47 @@ class SubGNNPipeline:
 
     # ------------------------------------------------------------ precompute
 
-    def precompute(self, recompute: Optional[bool] = None):
+    def precompute(self, recompute: Optional[bool] = None,
+                   mesh: Optional[MX.Mesh] = None):
         """Border sets, N/P shortest-path sims, the structure anchor pool and
         its walks, and the structure DTW sims of every split, cached under
         <task>/similarities with the JAX package's (and the reference's)
-        filenames (subgnn_tpu/train/runner.py:precompute without its mesh;
-        reference SubGNN.py:673-989). The all-pairs BFS (the C++ host
-        library, hp.n_processes threads) and the NP-sim CC-min run on the
-        host; the DTW kernel runs once per split and side on the
-        pipeline's device. Each stage's seconds go to `precompute_timings`
-        (and are printed when over 5 s). `recompute`: ignore the caches
-        (default hp.compute_similarities)."""
+        filenames (subgnn_tpu/train/runner.py:147-282; reference
+        SubGNN.py:673-989). The all-pairs BFS (the C++ host library,
+        hp.n_processes threads) runs on the host, and without a mesh the
+        NP-sim CC-min too; the DTW kernel runs once per split and side on
+        the pipeline's device.
+        Each stage's seconds go to `precompute_timings` (and are printed
+        when over 5 s). `recompute`: ignore the caches (default
+        hp.compute_similarities).
+
+        On a mesh (parallel/mesh.py) every rank calls this: the host
+        arrays (border sets, pool, walks) are computed by every rank from
+        the seed, the NP-sim CC-min runs on each rank's column block of the
+        path matrix and the DTW on each rank's block of comps, both
+        gathered to every rank; rank 0 alone writes files."""
         if not self._loaded:
             raise RuntimeError("call load() first")
         rc, hp = self.rc, self.hp
         sim_dir = rc.similarities_path()
         if recompute is None:
             recompute = hp.compute_similarities
+        lead = mesh is None or mesh.lead
         if hp.subset_data:
             # truncated splits: never read or write the full-data caches
             def cache(path, fn, recompute=False):
                 return fn()
-        else:
+        elif mesh is None:
             sim_dir.mkdir(parents=True, exist_ok=True)
             cache = cached
+        else:
+            def cache(path, fn, recompute=False):
+                # rank 0 decides each hit and every rank follows: a rank
+                # looking for itself could find a file rank 0 has just
+                # written, and skip the collectives rank 0 waits in
+                hit = MX.broadcast_object(
+                    not recompute and Path(path).exists(), mesh.group)
+                return cached(path, fn, hit=hit, save=lead)
         self.precompute_timings = {}
         t0 = time.time()
 
@@ -171,7 +190,7 @@ class SubGNNPipeline:
             nonlocal t0
             dt = time.time() - t0
             self.precompute_timings[name] = dt
-            if dt > 5:
+            if dt > 5 and lead:
                 print(f"[precompute] {name}: {dt:.1f}s", flush=True)
             t0 = time.time()
 
@@ -190,19 +209,22 @@ class SubGNNPipeline:
         if hp.use_neighborhood or hp.use_position:
             shortest = None   # (matrix or rows, row LUT or None), on a miss
 
-            def np_sim_inputs(s):
+            def np_sims(s):
                 nonlocal shortest
+                save = not hp.subset_data
                 if shortest is None:
-                    shortest = self._shortest(save=not hp.subset_data)
+                    shortest = (self._shortest(save) if mesh is None
+                                else self._shortest_block(mesh, save))
                 mat, lut = shortest
-                ids = self.cc_ids[s]
-                return mat, (ids if lut is None else lut[ids])
+                ids = self.cc_ids[s] if lut is None else lut[self.cc_ids[s]]
+                if mesh is None:
+                    return compute_shortest_path_similarities(mat, ids)
+                return shortest_path_similarities_mesh(
+                    mat, self.graph.n_nodes, ids, mesh)
 
             for s in SPLITS:
                 self.np_sim[s] = np.asarray(cache(
-                    np_sim_path(sim_dir, s),
-                    lambda s=s: compute_shortest_path_similarities(
-                        *np_sim_inputs(s)),
+                    np_sim_path(sim_dir, s), lambda s=s: np_sims(s),
                     recompute), dtype=np.float32)
         stage("NP similarities")
 
@@ -240,7 +262,7 @@ class SubGNNPipeline:
                             compute_structure_similarities(
                                 self.graph, self.cc_ids[s],
                                 self.structure_anchors, internal=internal,
-                                device=self.device),
+                                device=self.device, mesh=mesh),
                         recompute).astype(np.float32)
             stage("structure DTW similarities")
         return self
@@ -252,25 +274,56 @@ class SubGNNPipeline:
         nodes of every split only, with a LUT from 1-based node id to
         1-based row (PAD 0 stays 0); else the full matrix, built (and
         saved when `save`)."""
-        rc, hp = self.rc, self.hp
-        sp_path = rc.shortest_paths_path()
+        sp_path = self.rc.shortest_paths_path()
         if sp_path.exists():
             mm = "r" if sp_path.stat().st_size > _SP_MMAP_BYTES else None
             return np.load(sp_path, mmap_mode=mm), None
+        return self._build_shortest(save)
+
+    def _row_sources(self):
+        """(the CC nodes of every split, 1-based and sorted; the LUT from
+        1-based node id to 1-based row, PAD 0 staying 0): the rows of a
+        graph above _FULL_SP_MAX_NODES."""
+        srcs = np.unique(np.concatenate(
+            [self.cc_ids[s].ravel() for s in SPLITS]))
+        srcs = srcs[srcs != PAD_VALUE].astype(np.int64)
+        lut = np.zeros(self.graph.n_nodes + 1, np.int32)
+        lut[srcs] = np.arange(1, len(srcs) + 1, dtype=np.int32)
+        return srcs, lut
+
+    def _build_shortest(self, save: bool):
+        """_shortest without a matrix file: the BFS rows with their LUT, or
+        the full matrix (saved when `save`)."""
+        hp = self.hp
         if self.graph.n_nodes > _FULL_SP_MAX_NODES:
-            srcs = np.unique(np.concatenate(
-                [self.cc_ids[s].ravel() for s in SPLITS]))
-            srcs = srcs[srcs != PAD_VALUE].astype(np.int64)
-            rows = shortest_path_rows(self.graph, srcs,
-                                      n_threads=hp.n_processes)
-            lut = np.zeros(self.graph.n_nodes + 1, np.int32)
-            lut[srcs] = np.arange(1, len(srcs) + 1, dtype=np.int32)
-            return rows, lut
+            srcs, lut = self._row_sources()
+            return shortest_path_rows(self.graph, srcs,
+                                      n_threads=hp.n_processes), lut
         mat = shortest_path_matrix(self.graph, n_threads=hp.n_processes,
                                    device=self.device)
         if save:
-            np.save(sp_path, mat)
+            np.save(self.rc.shortest_paths_path(), mat)
         return mat, None
+
+    def _shortest_block(self, mesh: MX.Mesh, save: bool):
+        """_shortest on a mesh: (this rank's column block of the rows,
+        float32 on its device; the row LUT or None). An existing
+        shortest_path_matrix.npy is memory-mapped by every rank, which
+        reads its block only; otherwise rank 0 builds the matrix (or the
+        rows) as _shortest does and scatters the column blocks
+        (`scatter_world_cols`)."""
+        n = self.graph.n_nodes
+        sp_path = self.rc.shortest_paths_path()
+        # rank 0 decides: it may write the file below while the others look
+        if MX.broadcast_object(sp_path.exists(), mesh.group):
+            return path_column_block(np.load(sp_path, mmap_mode="r"),
+                                     mesh), None
+        mat = self._build_shortest(save)[0] if mesh.lead else None
+        n_rows, lut = n, None
+        if n > _FULL_SP_MAX_NODES:
+            srcs, lut = self._row_sources()
+            n_rows = len(srcs)
+        return MX.scatter_world_cols(mat, n_rows, n, mesh), lut
 
     # --------------------------------------------------------------- anchors
 
@@ -387,12 +440,11 @@ class SubGNNPipeline:
 
         On a mesh (the hparams' mesh_data_axis x mesh_node_axis > 1, one
         process a rank of the default process group: parallel/mesh.py)
-        every rank runs this whole method. Rank 0 alone precomputes, while
-        the others wait and then read its caches (the JAX run spreads its
-        DTW and NP sims over the mesh: ROADMAP Queue 1 item 11), and rank 0
-        alone writes files; every rank trains its rows of each batch (on a
-        node axis, with its shard of the table) and tests the best
-        checkpoint.
+        every rank runs this whole method: every rank precomputes on the
+        mesh (`precompute(mesh=)`: the NP-sim CC-min and the DTW pairs
+        spread over the ranks, as subgnn_tpu/train/runner.py:401), trains
+        its rows of each batch (on a node axis, with its shard of the
+        table) and tests the best checkpoint; rank 0 alone writes files.
 
         restore_path: filtered load of a checkpoint's weights and model
         state (the JAX package's or the port's), then train max_epochs from
@@ -409,13 +461,7 @@ class SubGNNPipeline:
         mesh = MX.mesh_from_hparams(hp, device=self.device)
         lead = mesh is None or mesh.lead
         self.load()
-        if lead:
-            self.precompute()
-        if mesh is not None:
-            # the other ranks read rank 0's caches (never write them)
-            torch.distributed.barrier(group=mesh.group)
-            if not lead:
-                self.precompute(recompute=False)
+        self.precompute(mesh=mesh)
         anchors = self.sample_anchors(seed)
         model, params, state = self.build_model(seed)
         eval_cc = self.eval_cc_tables()

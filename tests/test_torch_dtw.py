@@ -89,6 +89,7 @@ def test_grouped_wrapper_cpu_matches_per_pair():
                 ref = jdtw.dtw_host(cs[ic, :cl[ic]], as_[ia, :al[ia]])
                 assert abs(d[g, c, a] - ref) < 1e-5 * max(1.0, ref)
     assert tdtw.dtw_distance_grouped.launches == 0  # no kernel on the CPU
+    assert tdtw.dtw_distance_grouped.pairs == 0
 
 
 def test_grouped_wrapper_rejects_bad_inputs():

@@ -99,9 +99,11 @@ def test_dtw_kernel_matches_plain(cuda, request, Lc, La):
     cl, al = arrays[1], arrays[3]
     args = [torch.as_tensor(x, device=cuda) for x in arrays]
     before = kdtw.dtw_distance_grouped.launches
+    pairs = kdtw.dtw_distance_grouped.pairs
     got = kdtw.dtw_distance_grouped(*args, G, nc, na)
     again = kdtw.dtw_distance_grouped(*args, G, nc, na)
     assert kdtw.dtw_distance_grouped.launches == before + 2
+    assert kdtw.dtw_distance_grouped.pairs == pairs + 2 * G * nc * na
     ref = kdtw.dtw_distance_grouped_torch(*args, G, nc, na)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-5

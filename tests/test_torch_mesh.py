@@ -162,6 +162,7 @@ def _job_run(rank, tmp, mesh):
     os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank))
     t_runner.dump_json, t_runner.compute_structure_similarities = \
         counted_dump, counted_sims
+    MX.reset_counts()
     try:
         root = Path(tmp) / "run_root"
         t_train_cli.main(["-task", "mini", "-project_root", str(root),
@@ -171,6 +172,7 @@ def _job_run(rank, tmp, mesh):
         t_runner.dump_json, t_runner.compute_structure_similarities = \
             dump, sims
     counts["group_kept"] = dist.is_initialized()
+    counts["precompute_gathers"] = MX.all_gather_world.calls
     return counts
 
 
@@ -344,10 +346,12 @@ def test_mesh_resume_reproduces_uninterrupted_run(spawned):
 def test_mesh_run_writes_jax_artifacts_once(spawned, tmp_path):
     r0, r1 = spawned["run"]
     run_dir = spawned["tmp2"] / "run_root" / "tensorboard" / "mesh"
-    # rank 0 alone writes, once each; rank 1 reads rank 0's caches
+    # rank 0 alone writes, once each; both ranks precompute on the mesh,
+    # the structure sims of 3 splits x 2 sides and the NP sims gathered
     assert sorted(r0["dump_json"]) == sorted(ARTIFACTS)
     assert r1["dump_json"] == []
-    assert (r0["dtw_sims"], r1["dtw_sims"]) == (6, 0)   # 3 splits x 2 sides
+    assert (r0["dtw_sims"], r1["dtw_sims"]) == (6, 6)
+    assert r0["precompute_gathers"] == r1["precompute_gathers"] == 3 + 6
     assert r0["group_kept"] and r1["group_kept"]
     tkw = json.loads((run_dir / "trainer_kwargs.json").read_text())
     assert tkw["devices"] == ["cpu", "cpu"]
