@@ -177,6 +177,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 anchor_patch_samples_per_s printed. Seconds per epoch come
                 from host stamps (after a synchronize) at each step's first
                 draw;
+  5c. prepare mesh — the pretrainer's edge-sharded SpMM
+                (train_node_embeddings(mesh=)), the ring collectives and the
+                at-scale dry run. Every pretraining run is first made in
+                this process without a mesh: (a) an NCCL group of one rank
+                in this process, 5b (b)'s GCN setting (3 epochs, replayed
+                numpy draws) and 5b (a)'s projected GIN setting (5 epochs,
+                seeded draws) on the serving graph: bit-equal to the runs
+                without a mesh, segment_matmul launched exactly
+                spmm_launches' count, the world collectives' calls and bytes
+                exact; (b) two gloo ranks spawned on this card, the same two
+                settings and 5b (c)'s exact-k neighbor mode at PPI-BP scale:
+                losses within rel 1e-4 and embeddings within 1e-4 x max|emb|
+                of one process, each rank's launches spmm_launches' count at
+                its block of the edges, the world collectives exact, each
+                rank's seconds beside one process's; segment_matmul's
+                device_ms at a rank's block of the PPI edges against all of
+                them; (d) on those ranks, ring_all_reduce and
+                ring_all_gather of a (17080, 128) fp32 tensor against
+                dist.all_reduce (rel 1e-5) and dist.all_gather (equal), both
+                timed (gloo on one card, staged through the host), one
+                world all-reduce at the node sums' shape timed, and, on a
+                pair of processes of its own (gloo may abort a process that
+                tries it), what gloo's isend / irecv of a CUDA tensor does
+                (printed: why the rings stage through the host); (c)
+                entry()'s flagship forward, dryrun_multichip(1) (one NCCL
+                rank, fused) and dryrun_multichip_full(2) (two gloo ranks
+                of a (1, 2) mesh on this card, streaming: gloo cannot be
+                captured):
+                prepare, mesh precompute with 6 DTW launches a rank, fit,
+                test, checkpoint and the collective audit, its result and
+                seconds printed;
   6. BFS      — on seeded graphs of 4096 and 8192 nodes (average degree
                 16): the C++ all-pairs BFS at hp.n_processes threads and at
                 every hardware thread, shortest_path_matrix's device BFS,
@@ -207,11 +238,13 @@ Each path's launch counts are zeroed just before it and read just after
 the DTW record's launches are the 4 serving requests' (its
 `mesh_precompute` holds 4e's launches and pairs a rank, as each rank's
 wrapper counted them, and the device_ms of one launch at each rank's block
-shape, made in this process), segment_matmul's are
+shape, made in this process; its `dryrun` the launches of 5c (c)'s
+dry run on each rank), segment_matmul's are
 Trainer.fit's on the flagship fixture (the 20 bf16 steps and the dataset,
 run and prepare phases' runs are counted on their own, for their checks;
 the prepare runs' counts are in the record's `prepare_launches`, its time
-at the prepare plan in `prepare_spmm`); the C++
+at the prepare plan in `prepare_spmm`, 5c's launches on each rank of
+each mesh in `pretrainer_mesh`); the C++
 BFS's calls are counted over serving's precompute and over its requests.
 Prints the card's name and power limit, one JSON line of kernel records,
 and last {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -1950,6 +1983,426 @@ def prepare_phase(root: Path, seed: int, dev, gpu: str):
     return records
 
 
+PREP_MESH_WORLD = 2         # 5c (b), (d): gloo ranks on the one card
+PREP_MESH_GIN_EPOCHS = 5    # 5c: 5b (a)'s GIN setting, fewer epochs
+PREP_MESH_REL_TOL = 1e-4    # 5c (b): the node sums split over 2 ranks
+RING_RTOL = 1e-5            # 5c (d): the ring adds in rotation order
+RING_CALLS = 5              # 5c (d): timed calls of each collective
+GLOO_PROBE_S = 60           # 5c (d): the probe group's timeout
+
+
+def prep_mesh_runs(graphs, seed: int):
+    """5c's pretraining runs on `graphs` ({"serving": the serving graph,
+    "ppi": 5b (c)'s PPI-BP-scale graph}, either or both), {name: (graph,
+    keyword arguments, steps)}: on each graph 5b (b)'s GCN (replayed numpy
+    draws, given initial parameters) and 5b (a)'s projected GIN, and at
+    PPI-BP scale 5b (c)'s exact-k neighbor mode too."""
+    import torch
+    from subgnn_tpu_torch.prepare import node_emb as NE
+    out = {}
+    for tag, g in graphs.items():
+        n = g.n_nodes
+        src, dst = NE._directed_edges(g)
+        n_tr = 8 * int((src < dst).sum()) // 10
+        drng = np.random.default_rng(seed + 6)
+        n_feat = n if n <= NE.ONE_HOT_MAX_NODES else NE.PROJECTION_DIM
+        init = NE.init_gnn_params(torch.Generator().manual_seed(seed),
+                                  n_feat, 128, 64)
+        negs = [drng.integers(0, n, (2, max(n_tr // 4, 1)))
+                for _ in range(PREP_CPU_EPOCHS)]
+        keeps = [drng.random((n, 128)) >= 0.4
+                 for _ in range(PREP_CPU_EPOCHS)]
+        out[f"{tag}_gcn"] = (g, dict(conv_type="gcn", dropout=0.4,
+                                     epochs=PREP_CPU_EPOCHS, params=init,
+                                     replay=dict(negatives=negs,
+                                                 keep=keeps)),
+                             PREP_CPU_EPOCHS)
+        out[f"{tag}_gin"] = (g, dict(conv_type="gin", hidden=128,
+                                     out_dim=64,
+                                     epochs=PREP_MESH_GIN_EPOCHS),
+                             PREP_MESH_GIN_EPOCHS)
+    if "ppi" in graphs:
+        ppi = graphs["ppi"]
+        out["ppi_neighbor"] = (ppi, dict(conv_type="gcn",
+                                         minibatch="neighbor",
+                                         batch_size=512, nb_size=10,
+                                         nb_exact=True, epochs=1),
+                               -(-ppi.n_nodes // 512))
+    return out
+
+
+def prep_mesh_run(run, seed: int, dev, mesh=None):
+    """One of prep_mesh_runs' runs on `dev` (on `mesh`): embeddings,
+    metrics, segment_matmul launches, the world collectives' {name: (calls,
+    bytes)}, this rank's block of the edges, seconds, median step seconds."""
+    import torch
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.prepare import node_emb as NE
+    g, kw, _ = run
+    kw = dict(kw)
+    replay = kw.pop("replay", None)
+    draws = (NE.ReplayDraws(dev, **replay) if replay is not None
+             else timed_draws(torch.Generator(device=dev).manual_seed(seed)))
+    E.segment_matmul.launches = 0
+    MX.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, m = NE.train_node_embeddings(g, seed=seed, device=dev, draws=draws,
+                                      mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    E_all = len(NE._directed_edges(g)[0])
+    return {"emb": emb, "metrics": m, "launches": E.segment_matmul.launches,
+            "counts": {h.__name__: (h.calls, h.bytes)
+                       for h in MX.COLLECTIVES if h.calls},
+            "block": (0, E_all) if mesh is None else mesh.world_block(E_all),
+            "secs": secs,
+            "step_s": (step_seconds(draws)[0] if replay is None
+                       else float("nan"))}
+
+
+def prep_mesh_expect(run, block):
+    """(segment_matmul launches, world collectives) a run makes on a rank
+    holding `block` of the edges (the design: tests/test_torch_node_emb_mesh
+    derives the same)."""
+    from subgnn_tpu_torch.prepare import node_emb as NE
+    g, kw, steps = run
+    n = g.n_nodes
+    src, dst = NE._directed_edges(g)
+    n_tr = 8 * int((src < dst).sum()) // 10
+    hidden = kw.get("hidden", 128)
+    n_feat = n if n <= NE.ONE_HOT_MAX_NODES else NE.PROJECTION_DIM
+    projected = n_feat > hidden
+    mode = kw.get("minibatch", "full")
+    want = NE.spmm_launches(block[1] - block[0], n_tr,
+                            conv_type=kw["conv_type"], minibatch=mode,
+                            projected=projected)
+    d1 = hidden if projected else n_feat
+    counts = {"sum_over_world": (2 * steps + 2,
+                                 (steps + 1) * 4 * n * (d1 + hidden)),
+              "copy_to_world": (steps * (1 + projected),
+                                steps * (1 + projected) * 4 * n * hidden)}
+    if kw["conv_type"] == "gcn" and mode != "full":
+        counts["all_reduce_world_"] = (steps, steps * 4 * n)
+    return steps * want["step"] + want["eval"], counts
+
+
+def ring_check(mesh, x):
+    """5c (d): ring_all_reduce and ring_all_gather of `x` (this rank's) on
+    `mesh` against dist.all_reduce / dist.all_gather: max relative error,
+    the gathers equal, and the median milliseconds of RING_CALLS calls of
+    each (host clock, synchronised)."""
+    import torch
+    import torch.distributed as dist
+    from subgnn_tpu_torch.parallel import collectives as RC
+
+    def timed(fn):
+        out, secs = None, []
+        for _ in range(RING_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, float(np.median(secs)) * 1e3
+
+    def dist_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.group)
+        return y
+
+    def dist_gather():
+        ys = [torch.empty_like(x) for _ in range(mesh.world)]
+        dist.all_gather(ys, x, group=mesh.group)
+        return torch.stack(ys)
+
+    want, dist_ms = timed(dist_reduce)
+    RC.reset_counts()
+    got, ring_ms = timed(lambda: RC.ring_all_reduce(x, mesh))
+    rotations = RC.ring_all_reduce.calls // RING_CALLS
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-6)).max())
+    gwant, gdist_ms = timed(dist_gather)
+    ggot, gring_ms = timed(lambda: RC.ring_all_gather(x, mesh))
+    return {"rel_err": rel, "gather_equal": bool(torch.equal(ggot, gwant)),
+            "ring_ms": ring_ms, "dist_ms": dist_ms,
+            "gather_ring_ms": gring_ms, "gather_dist_ms": gdist_ms,
+            "rotations": rotations, "bytes": x.numel() * x.element_size()}
+
+
+def world_reduce_ms(mesh, n: int, width: int) -> float:
+    """Median host milliseconds of RING_CALLS synchronised all-reduces of
+    an (n, width) fp32 tensor over the whole group: one of the pretrainer's
+    world sums at that shape."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(n, width, device=mesh.device)
+    secs = []
+    for _ in range(RING_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=mesh.group)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return float(np.median(secs)) * 1e3
+
+
+def gloo_probe_rank(rank, store, out):
+    """5c (d): whether gloo's point-to-point takes a CUDA tensor, tried by
+    one of two processes of a group of their own (spawned; its ops time out
+    after GLOO_PROBE_S instead of hanging). Writes <out>.<rank>.txt: the
+    error it raised, or "" when the exchange went through. gloo may instead
+    throw in its I/O thread, which aborts the process: the phase spawns the
+    probe apart from every other rank for that reason. Why the ring
+    collectives stage through the host on gloo."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=GLOO_PROBE_S))
+    x = torch.full((4,), float(rank), device="cuda:0")
+    got = torch.empty_like(x)
+    try:
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, 1 - rank),
+                 dist.P2POp(dist.irecv, got, 1 - rank)]):
+            req.wait()
+        said = ""
+    except Exception as e:  # what it raised is the finding
+        said = str(e).splitlines()[0]
+    Path(f"{out}.{rank}.txt").write_text(said)
+
+
+def gloo_probe(root: Path):
+    """gloo_probe_rank on two spawned processes: {rank: what it said}, or
+    "aborted: <why>" for a rank whose process died before it could say."""
+    import torch.multiprocessing as mp
+    out = root / "gloo_probe"
+    aborted = ""
+    try:
+        mp.start_processes(gloo_probe_rank,
+                           args=(str(root / "gloo_probe_store"), str(out)),
+                           nprocs=2, start_method="spawn")
+    except (mp.ProcessExitedException, mp.ProcessRaisedException) as e:
+        aborted = str(e).strip().splitlines()[-1]
+    said = {}
+    for r in range(2):
+        f = Path(f"{out}.{r}.txt")
+        said[r] = f.read_text() if f.exists() else f"aborted: {aborted}"
+    return said
+
+
+def prep_mesh_rank(rank, store, graph_path, seed, out):
+    """5c (b), (d): one of PREP_MESH_WORLD gloo ranks on cuda:0 (spawned):
+    prep_mesh_runs' PPI-scale runs on the mesh, then the ring collectives
+    and the wire time of one world all-reduce at the node sums' shape.
+    Writes <out>.<rank>.pt."""
+    sys.path.insert(0, str(HERE))
+    import torch
+    import torch.distributed as dist
+    from subgnn_tpu_torch.data.graph import CSRGraph
+    from subgnn_tpu_torch.parallel import mesh as MX
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=PREP_MESH_WORLD, rank=rank)
+    try:
+        mesh = MX.make_device_mesh(PREP_MESH_WORLD, device="cuda:0")
+        ppi = CSRGraph.from_edges(np.load(graph_path), n_nodes=PPI_BP[0])
+        result = {k: prep_mesh_run(v, seed, mesh.device, mesh)
+                  for k, v in prep_mesh_runs({"ppi": ppi}, seed).items()}
+        gen = torch.Generator(device="cuda:0").manual_seed(seed + rank)
+        x = torch.randn(PPI_BP[0], 128, generator=gen, device="cuda:0")
+        result["ring"] = ring_check(mesh, x)
+        result["world_reduce_ms"] = world_reduce_ms(mesh, PPI_BP[0], 128)
+        torch.save(result, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def prep_mesh_phase(root: Path, graph, seed: int, dev, gpu: str):
+    """Phase 5c: the pretrainer's edge-sharded SpMM on a mesh, the ring
+    collectives and the at-scale dry run (see the module doc). Returns the
+    kernel records' entries: segment_matmul's launches on each rank
+    (`pretrainer_mesh`) and the dry run's (`dryrun`)."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from subgnn_tpu_torch import entry as EN
+    from subgnn_tpu_torch.kernel_times import device_times
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.parallel import mesh as MX
+    from subgnn_tpu_torch.prepare import node_emb as NE
+
+    t_phase = time.perf_counter()
+    ppi = uniform_graph(np.random.default_rng(seed + 5), *PPI_BP)
+    runs = prep_mesh_runs({"serving": graph, "ppi": ppi}, seed)
+
+    # one process on the card: every run's reference
+    ref = {k: prep_mesh_run(v, seed, dev) for k, v in runs.items()}
+    for k, r in ref.items():
+        print(f"[prepare mesh] {k}, no mesh: {r['secs']:.2f}s, median step "
+              f"{r['step_s']!r}s, losses {r['metrics']['loss_history']!r}, "
+              f"segment_matmul launches {r['launches']}")
+
+    # (a) one NCCL rank: bit-equal to no mesh, launches exact
+    dist.init_process_group("nccl",
+                            init_method=f"file://{root}/nccl_prep_store",
+                            world_size=1, rank=0)
+    try:
+        mesh = MX.make_device_mesh(1, device=dev)
+        one = {k: prep_mesh_run(runs[k], seed, dev, mesh)
+               for k in ("serving_gcn", "serving_gin")}
+    finally:
+        dist.destroy_process_group()
+    records = {}
+    for k, r in one.items():
+        want_launches, want_counts = prep_mesh_expect(runs[k], r["block"])
+        same = (np.array_equal(r["emb"], ref[k]["emb"])
+                and r["metrics"]["loss_history"]
+                == ref[k]["metrics"]["loss_history"])
+        print(f"[prepare mesh] (a) {k} on one NCCL rank: {r['secs']:.2f}s "
+              f"(no mesh {ref[k]['secs']:.2f}s); bits equal to no mesh "
+              f"{same}; segment_matmul launches {r['launches']} (expected "
+              f"{want_launches}); world collectives {r['counts']} (expected "
+              f"{want_counts}) ({gpu})")
+        check(same, f"prepare mesh (a) {k}: one NCCL rank is not bit-equal "
+                    f"to the run without a mesh")
+        check(r["launches"] == want_launches == ref[k]["launches"],
+              f"prepare mesh (a) {k}: {r['launches']} segment_matmul "
+              f"launches, expected {want_launches}")
+        check(r["counts"] == want_counts, f"prepare mesh (a) {k}: world "
+              f"collectives {r['counts']}, expected {want_counts}")
+        records[f"nccl1_{k}"] = [r["launches"]]
+
+    # (b), (d): PREP_MESH_WORLD gloo ranks on this card
+    graph_path = root / "ppi_edges.npy"
+    src, dst = NE._directed_edges(ppi)
+    und = src < dst
+    np.save(graph_path, np.stack([src[und], dst[und]], 1) + 1)
+    out = root / "prep_gloo"
+    t0 = time.perf_counter()
+    mp.start_processes(prep_mesh_rank,
+                       args=(str(root / "prep_gloo_store"), str(graph_path),
+                             seed, str(out)),
+                       nprocs=PREP_MESH_WORLD, start_method="spawn")
+    spawn_secs = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}.pt", weights_only=False)
+             for r in range(PREP_MESH_WORLD)]
+    for k in [k for k in runs if k.startswith("ppi")]:
+        r_ref = ref[k]
+        scale = float(np.abs(r_ref["emb"]).max())
+        for r, res in enumerate(ranks):
+            x = res[k]
+            want_launches, want_counts = prep_mesh_expect(runs[k], x["block"])
+            loss_rel = max(rel_diff(a, b) for a, b in zip(
+                x["metrics"]["loss_history"],
+                r_ref["metrics"]["loss_history"]))
+            emb_err = float(np.abs(x["emb"] - r_ref["emb"]).max())
+            print(f"[prepare mesh] (b) {k} rank {r} of {PREP_MESH_WORLD} "
+                  f"gloo ranks on cuda:0, edges {x['block']}: "
+                  f"{x['secs']:.2f}s (one process {r_ref['secs']:.2f}s), "
+                  f"median step {x['step_s']!r}s (one process "
+                  f"{r_ref['step_s']!r}s); losses max rel diff {loss_rel!r} "
+                  f"(tol {PREP_MESH_REL_TOL}), embeddings max |diff| "
+                  f"{emb_err!r} (max |emb| {scale!r}, tol "
+                  f"{PREP_MESH_REL_TOL} x that); segment_matmul launches "
+                  f"{x['launches']} (expected {want_launches}; one process "
+                  f"{r_ref['launches']}); world collectives {x['counts']} "
+                  f"(expected {want_counts}) ({gpu})")
+            check(loss_rel <= PREP_MESH_REL_TOL, f"prepare mesh (b) {k} rank "
+                  f"{r}: losses disagree with one process")
+            check(emb_err <= PREP_MESH_REL_TOL * scale, f"prepare mesh (b) "
+                  f"{k} rank {r}: embeddings disagree with one process")
+            check(x["launches"] == want_launches, f"prepare mesh (b) {k} "
+                  f"rank {r}: {x['launches']} segment_matmul launches, "
+                  f"expected {want_launches}")
+            check(x["counts"] == want_counts, f"prepare mesh (b) {k} rank "
+                  f"{r}: world collectives {x['counts']}, expected "
+                  f"{want_counts}")
+        records[f"gloo{PREP_MESH_WORLD}_{k}"] = [res[k]["launches"]
+                                                 for res in ranks]
+    for r, res in enumerate(ranks):
+        ring = res["ring"]
+        print(f"[prepare mesh] (d) rank {r}: ring collectives over gloo on "
+              f"one card (host-staged), {ring['bytes']} bytes a rank: "
+              f"ring_all_reduce vs dist.all_reduce max rel err "
+              f"{ring['rel_err']!r} (tol {RING_RTOL}), {ring['rotations']} "
+              f"rotations, {ring['ring_ms']!r} ms vs {ring['dist_ms']!r} ms; "
+              f"ring_all_gather equal to dist.all_gather "
+              f"{ring['gather_equal']}, {ring['gather_ring_ms']!r} ms vs "
+              f"{ring['gather_dist_ms']!r} ms (median of {RING_CALLS}, host "
+              f"clock; gloo on one card, not NCCL); one world all-reduce of "
+              f"the ({PPI_BP[0]}, 128) node sums {res['world_reduce_ms']!r} "
+              f"ms ({gpu})")
+        check(ring["rel_err"] <= RING_RTOL, f"prepare mesh (d) rank {r}: "
+              f"ring_all_reduce disagrees with dist.all_reduce")
+        check(ring["gather_equal"], f"prepare mesh (d) rank {r}: "
+              f"ring_all_gather differs from dist.all_gather")
+        check(ring["rotations"] == 2 * (PREP_MESH_WORLD - 1),
+              f"prepare mesh (d) rank {r}: {ring['rotations']} rotations")
+    for r, said in gloo_probe(root).items():
+        print(f"[prepare mesh] (d) rank {r} of a probe pair: gloo's isend / "
+              f"irecv of a CUDA tensor: "
+              + (said if said.startswith("aborted") else
+                 f"raised {said!r}" if said else "went through"))
+
+    # segment_matmul at a rank's block of the PPI edges (its dst plan, the
+    # forward sum, D = hidden 128), made here after the ranks have exited,
+    # against the plan of all the edges
+    lo, hi = ranks[0]["ppi_gcn"]["block"]
+    block_ms = {}
+    for tag, (a, b) in (("all edges", (0, len(src))),
+                        ("rank 0's block", (lo, hi))):
+        edges = NE.EdgePlans(src[a:b], dst[a:b], ppi.n_nodes, dev, None)
+        c = edges.chunks[0]
+        g = torch.randn(b - a, 128, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(seed))
+        block_ms[tag] = device_times(
+            lambda: E.segment_matmul(g, c.plan_dst, ppi.n_nodes))["device_ms"]
+    print(f"[prepare mesh] segment_matmul device_ms at the PPI edges' dst "
+          f"plan, D=128 fp32: {json.dumps(block_ms)}; spawn to exit "
+          f"{spawn_secs:.2f}s ({gpu})")
+
+    # (c) the dry runs: the flagship forward and one NCCL rank's fused fit
+    # (the module's own entry point), then dryrun_multichip_full on two
+    # gloo ranks of a (1, 2) mesh on this card
+    t0 = time.perf_counter()
+    fn, args = EN.entry()
+    logits = fn(*args)
+    check(tuple(logits.shape) == (32, 4)
+          and bool(torch.isfinite(logits).all()), "entry(): bad logits")
+    fit = EN.dryrun_multichip(1, full=False)
+    check(fit["fused"] and fit["backend"] == "nccl", f"dryrun_multichip(1): "
+          f"{fit}")
+    print(f"[prepare mesh] (c) entry() logits {tuple(logits.shape)} finite; "
+          f"dryrun_multichip(1): {json.dumps(fit)} "
+          f"({time.perf_counter() - t0:.2f}s) ({gpu})")
+    t0 = time.perf_counter()
+    full = EN.dryrun_multichip_full(PREP_MESH_WORLD)
+    full_s = time.perf_counter() - t0
+    print(f"[prepare mesh] (c) dryrun_multichip_full({PREP_MESH_WORLD}): "
+          f"{full_s:.2f}s ({gpu})")
+    check(full["mesh"] == {"data": 1, "node": 2} and full["n_nodes"] == 5000
+          and np.isfinite(full["best_monitor"])
+          and np.isfinite(full["test_micro_f1"]),
+          f"dryrun_multichip_full: {full}")
+    check(full["backend"] == "gloo" and not full["fused"],
+          "dryrun_multichip_full: gloo ranks on the card fit streaming")
+    for r, x in enumerate(full["ranks"]):
+        check(x["launches"]["dtw_grouped"] == 6 and
+              x["launches"]["segment_matmul"] > 0, f"dryrun_multichip_full "
+              f"rank {r}: launches {x['launches']}")
+    print(f"[prepare mesh] phase seconds {time.perf_counter() - t_phase:.2f}")
+    return ({"launches_per_rank": records, "segment_matmul_block_ms":
+             block_ms, "world_reduce_ms": [r["world_reduce_ms"]
+                                           for r in ranks]},
+            {"launches_per_rank": [x["launches"] for x in full["ranks"]],
+             "seconds": full_s})
+
+
 def spmm_timing(E, g, ids, plan, rows):
     """The kernel's call and device time at (g, plan) against its plain
     version and index_add_, with its bound."""
@@ -2397,6 +2850,10 @@ def main(argv=None) -> int:
         # ----------------------------------------------------- 5b. prepare
         prepare = prepare_phase(root, args.seed, dev, card())
 
+        # ------------------------------------------------ 5c. prepare mesh
+        prep_mesh, dryrun = prep_mesh_phase(root, graph, args.seed, dev,
+                                            card())
+
     # ------------------------------------------------------------ 6. BFS
     bfs_phase(hp, args.seed, dev)
 
@@ -2408,7 +2865,7 @@ def main(argv=None) -> int:
                   "bound_by": bound_by, "library_ms": None,
                   "bits_equal": req_same, "device_ms": dev_t["device_ms"],
                   "span_ms": dev_t["span_ms"], "call_ms": ms,
-                  "mesh_precompute": mesh_pre}
+                  "mesh_precompute": mesh_pre, "dryrun": dryrun}
 
     # --------------------------------------------------------- 7. training
     # 20 bf16 steps at B=1280, timed in runs of 5 (before the CPU recompute
@@ -2590,7 +3047,7 @@ def main(argv=None) -> int:
                                        if isinstance(v, dict)
                                        and "launches" in v},
                   "prepare_spmm": prepare["spmm"],
-                  "node_axis": node}
+                  "node_axis": node, "pretrainer_mesh": prep_mesh}
 
     print(card())
     for record in (dtw_record, seg_record):

@@ -42,12 +42,20 @@ group its sum is over:
     precompute shards over every device at once): `all_gather_world`
     (the NP sims' column blocks, the structure sims' comp blocks, the BFS
     rows and frontiers), `all_reduce_world_` (the partitioned BFS's
-    new-node count) and `scatter_world_cols` (rank 0's path matrix, a
-    column block a rank).
+    new-node count, the pretrainer's sample degrees) and
+    `scatter_world_cols` (rank 0's path matrix, a column block a rank);
+  * the pretrainer's edge partition (prepare/node_emb.py), over the whole
+    group: `sum_over_world` (each rank's partial node sums, identity
+    backward) and `copy_to_world` (identity forward, each rank's partial
+    input gradient all-reduced in the backward): the pair GSPMD's lowering
+    of "edges sharded, output replicated" amounts to.
 
 Each helper counts its calls and the bytes it reduces (`calls`, `bytes`),
 as a kernel wrapper counts its launches; a captured step adds them per
-replay (train/graphs.py).
+replay (train/graphs.py). On the wire every helper but one is an
+all-reduce (the gathers are all-reduces of zero buffers, `_gather_by_sum`);
+`scatter_world_cols` is a scatter from rank 0 (parallel/audit.py maps each
+helper to its kind).
 
 Launch with torchrun (`init_from_env`); tests and chip_smoke.py initialise
 the default group themselves with a file:// store.
@@ -428,8 +436,56 @@ def all_gather_world(block: torch.Tensor, n: int, mesh: Mesh,
 
 def all_reduce_world_(tensors: List[torch.Tensor], mesh: Mesh) -> None:
     """Sum each tensor over the whole group, in place (one buffer): the
-    partitioned BFS's new-node count, JAX's psum over every device."""
+    partitioned BFS's new-node count, JAX's psum over every device; the
+    pretrainer's sample degrees from each rank's edges."""
     _sum_flat_(all_reduce_world_, tensors, mesh.group)
+
+
+class _SumOverWorld(torch.autograd.Function):
+    """y = the sum of x over the whole group. Every rank computes the same
+    loss from the same y, so the backward is the identity (as
+    _SumOverNode's)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.group)
+        _count(sum_over_world, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over_world(partial: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Each rank's partial node sums (over its block of the edges) summed
+    over the whole group: an all-reduce forward, the identity backward."""
+    return _SumOverWorld.apply(partial, mesh)
+
+
+class _CopyToWorld(torch.autograd.Function):
+    """y = x, replicated on every rank; each rank's y reaches the loss only
+    through its own edges, so x's gradient is the sum over the whole group
+    of the ranks' gradients of y."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.mesh.group)
+        _count(copy_to_world, grad)
+        return grad, None
+
+
+def copy_to_world(h: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`h` as it is, whose gradient is all-reduced over the whole group in
+    the backward: the input of a rank's edge-block SpMM."""
+    return _CopyToWorld.apply(h, mesh)
 
 
 def scatter_world_cols(mat, n_rows: int, n_cols: int,
@@ -460,7 +516,8 @@ def scatter_world_cols(mat, n_rows: int, n_cols: int,
 
 COLLECTIVES = (all_reduce_sum_, all_reduce_bn_stats, all_gather_rows,
                node_sum, all_reduce_node_, all_gather_world,
-               all_reduce_world_, scatter_world_cols)
+               all_reduce_world_, scatter_world_cols, sum_over_world,
+               copy_to_world)
 PRECOMPUTE_COLLECTIVES = (all_gather_world, all_reduce_world_,
                           scatter_world_cols)
 for _helper in COLLECTIVES:

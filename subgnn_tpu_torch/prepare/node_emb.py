@@ -1,6 +1,6 @@
 """Self-supervised node-embedding pretrainer (GIN / GCN link prediction).
 
-Port of subgnn_tpu/prepare/node_emb.py without its mesh branch:
+Port of subgnn_tpu/prepare/node_emb.py:
 
   * 2-layer GIN (h' = Linear(h + sum_nbr h), GINConv eps=0) or GCN
     (symmetric-normalized adjacency with self loops);
@@ -28,7 +28,20 @@ Port of subgnn_tpu/prepare/node_emb.py without its mesh branch:
     (per-epoch shuffled seed batches; the sampled adjacency is an edge
     mask, thinned i.i.d. or to exactly k in-edges a seed);
   * AdamW (optax.adamw), the greedy hyperparameter search over the
-    reference's spaces, and loss / ROC plots.
+    reference's spaces, and loss / ROC plots;
+  * on a mesh (parallel/mesh.py, every rank calling with the same
+    arguments) the directed edges are split over the ranks
+    (`Mesh.world_block`): a rank keeps its block, in EDGE_CHUNK chunks as
+    without a mesh, and sums its own edges' messages; the partial node
+    sums are all-reduced over the whole group (`sum_over_world`, identity
+    backward), and the SpMM's input gradient likewise (`copy_to_world`).
+    Features, parameters, AdamW's state, the positive and negative edges
+    and every draw are replicated: every rank seeds the same generator (or
+    replays the same draws), computes the same loss and applies the same
+    update, and returns the same embeddings and metrics. Rank 0 alone
+    writes the plots. JAX shards the edges the same way and lets GSPMD
+    insert the all-reduce (it pads the edges to a multiple of the devices
+    and leaves them unchunked there).
 
 Every random draw of a run (initial parameters, negatives, dropout
 keep-masks, walks, permutations, thinning uniforms) comes from one
@@ -53,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from ..data.graph import CSRGraph
 from ..device import resolve_device
 from ..models.dropout import dropout as apply_dropout
+from ..parallel import mesh as MX
 from ..ops.embedding import (GatherPlan, embedding_gather, make_gather_plan,
                              segment_matmul, segment_sum)
 from ..sampling.device_walks import uniform_index
@@ -105,12 +119,18 @@ class EdgePlans:
     """A run's directed edge array (src -> dst, 0-based ids) on the device,
     in chunks of at most `chunk` edges (None: one chunk), each with its
     gather plans: by src for the backward of the x[src] gather and by dst
-    for the sum. Built once a run on the host."""
+    for the sum. Built once a run on the host. With a `mesh`, this rank's
+    block [lo, hi) of the edges (`Mesh.world_block`, possibly empty), whose
+    sums the SpMM adds over the ranks."""
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n_nodes: int,
-                 device, chunk: int | None = EDGE_CHUNK):
-        src = np.asarray(src, np.int64)
-        dst = np.asarray(dst, np.int64)
+                 device, chunk: int | None = EDGE_CHUNK,
+                 mesh: Optional[MX.Mesh] = None):
+        self.mesh = mesh
+        self.lo, self.hi = (0, len(src)) if mesh is None \
+            else mesh.world_block(len(src))
+        src = np.asarray(src[self.lo:self.hi], np.int64)
+        dst = np.asarray(dst[self.lo:self.hi], np.int64)
         self.n_nodes = int(n_nodes)
         self.n_edges = len(src)
         self.src = torch.as_tensor(src, device=device)
@@ -127,24 +147,36 @@ class EdgePlans:
 
 def _gather_segment_sum(x, edges: EdgePlans, edge_mask=None):
     """segment_sum(x[src] * edge_mask, dst) over the edge chunks, both
-    directions on segment_matmul. Chunked and unchunked differ only in fp
-    reduction order."""
-    out = x.new_zeros(edges.n_nodes, x.shape[1]) if not edges.chunks else None
+    directions on segment_matmul (`edge_mask`: the block's). Chunked and
+    unchunked differ only in fp reduction order. On a mesh, x enters
+    through copy_to_world and the rank's sums leave through
+    sum_over_world; a rank without edges still takes part in both."""
+    mesh = edges.mesh
+    if mesh is not None:
+        x = MX.copy_to_world(x, mesh)
+    out = None
     for c in edges.chunks:
         msgs = embedding_gather(x, c.src, c.plan_src)
         if edge_mask is not None:
             msgs = msgs * edge_mask[c.lo:c.hi, None]
         part = segment_sum(msgs, c.dst, c.plan_dst)
         out = part if out is None else out + part
-    return out
+    if out is None:
+        # no edges: zeros that still depend on x, so that its gradient
+        # (and copy_to_world's all-reduce) reaches this rank too
+        out = x.new_zeros(edges.n_nodes, x.shape[1]) + x[:0].sum()
+    return out if mesh is None else MX.sum_over_world(out, mesh)
 
 
 def _in_degrees(vals, edges: EdgePlans):
-    """(n,) sums of the per-edge values `vals` (E,) by dst (no gradient)."""
+    """(n,) sums of the per-edge values `vals` (the block's) by dst (no
+    gradient), over every rank's edges on a mesh."""
     out = vals.new_zeros(edges.n_nodes)
     for c in edges.chunks:
         out = out + segment_matmul(vals[c.lo:c.hi, None].contiguous(),
                                    c.plan_dst)[:, 0]
+    if edges.mesh is not None:
+        MX.all_reduce_world_([out], edges.mesh)
     return out
 
 
@@ -203,7 +235,8 @@ def spmm_launches(n_edges: int, n_train: int, *, conv_type: str,
     sums twice (2c), plus once for GCN's sample degrees outside full mode
     (c); the backward routes the positive endpoints (p), layer 2's gather
     (c) and, when layer 1 projects first, layer 1's gather (c); without the
-    projection x has no gradient and layer 1 needs none."""
+    projection x has no gradient and layer 1 needs none. On a mesh a rank's
+    count takes its block's `n_edges` (0 for an empty block)."""
     chunk = EDGE_CHUNK if chunk is None else chunk
     c = max(-(-n_edges // chunk), 1) if n_edges else 0
     p = max(-(-n_train // chunk), 1)
@@ -486,7 +519,8 @@ def train_node_embeddings(graph: CSRGraph, *, conv_type: str = "gin",
                           plots_dir: Optional[str | Path] = None,
                           log_every: int = 0,
                           device: str | torch.device = "cuda",
-                          params=None, draws=None
+                          params=None, draws=None,
+                          mesh: Optional[MX.Mesh] = None
                           ) -> Tuple[np.ndarray, Dict]:
     """Returns (embeddings (n_nodes, out_dim) float32, metrics dict): the
     JAX package's metrics plus `loss_history`, the mean train loss of each
@@ -502,8 +536,17 @@ def train_node_embeddings(graph: CSRGraph, *, conv_type: str = "gin",
     `params` (a tree as init_gnn_params returns, any device; copied) and
     `draws` (a Draws or ReplayDraws) replace the initial parameters and the
     per-step draws, which otherwise come from one generator seeded `seed`
-    on `device`."""
+    on `device`.
+
+    `mesh`: every rank of it calls with the same arguments and trains on
+    its block of the edges (module docstring), on the mesh's device, whose
+    type `device` must name; rank 0 alone writes `plots_dir`."""
     dev = resolve_device(device)
+    if mesh is not None:
+        if mesh.device.type != dev.type:
+            raise ValueError(f"device {str(dev)!r} is not the mesh's "
+                             f"({mesh.device})")
+        dev = mesh.device
     if minibatch not in ("full", "graphsaint", "neighbor"):
         raise ValueError(minibatch)
     n = graph.n_nodes
@@ -533,7 +576,7 @@ def train_node_embeddings(graph: CSRGraph, *, conv_type: str = "gin",
         draws = Draws(gen)
     opt = AdamW(lr, weight_decay)
     opt_state = opt.init(params)
-    data = LinkData(x, EdgePlans(src, dst, n, dev, EDGE_CHUNK), deg,
+    data = LinkData(x, EdgePlans(src, dst, n, dev, EDGE_CHUNK, mesh), deg,
                     EdgeEndpoints(splits["train"], n, dev, EDGE_CHUNK),
                     conv_type, dropout)
     train_pos = data.pos.edges
@@ -581,7 +624,8 @@ def train_node_embeddings(graph: CSRGraph, *, conv_type: str = "gin",
         # 2 * |train| * batch_size / n directed train edges; num_neg ~ // 4
         n_neg = max(2 * n_tr * batch_size // (4 * n), 1)
         E = len(dst)
-        dst_t = data.edges.dst
+        lo, hi = data.edges.lo, data.edges.hi
+        dst_t = data.edges.dst          # this rank's block of the edges
         if nb_size > 0 and nb_exact:
             in_pos, in_valid = build_in_edge_table(dst, n)
             in_pos = torch.as_tensor(in_pos, device=dev).long()
@@ -600,12 +644,15 @@ def train_node_embeddings(graph: CSRGraph, *, conv_type: str = "gin",
                 mask[seeds] = 1.0
                 mask[n] = 0.0
                 emask = mask[dst_t]          # incoming edges of the seeds
+                # the draws and the exact-k mask are whole (replicated),
+                # then cut to the block
                 if nb_size > 0 and nb_exact:
                     emask = emask * exact_k_edge_mask(
                         draws.uniform(in_pos.shape), in_pos, in_valid,
-                        nb_size, E)
+                        nb_size, E)[lo:hi]
                 elif nb_size > 0:
-                    emask = emask * (draws.uniform((E,)) < keep_p).float()
+                    emask = emask * (draws.uniform((E,))[lo:hi]
+                                     < keep_p).float()
                 # negatives among the seeds; a pad endpoint (id n) makes a
                 # zero-weight negative
                 neg_raw = seeds[draws.negatives(batch_size, n_neg)]
@@ -663,7 +710,7 @@ def train_node_embeddings(graph: CSRGraph, *, conv_type: str = "gin",
             f"{metrics['val_auc']:.3f}, mean row norm "
             f"{metrics['emb_norm_mean']:.0f}); on dense graphs try "
             "conv_type='gcn' or more epochs", RuntimeWarning)
-    if plots_dir is not None:
+    if plots_dir is not None and (mesh is None or mesh.lead):
         _save_plots(Path(plots_dir), conv_type, loss_history, curves)
     return emb_np, metrics
 
