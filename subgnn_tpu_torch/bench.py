@@ -1,46 +1,21 @@
-"""Training-step throughput of the port on one CUDA device.
+"""Fixtures and measuring helpers of the port, shared by the tests,
+chip_smoke.py, kernel_times.py and entry.py.
 
-    python -m subgnn_tpu_torch.bench          # BENCH_DTYPE=bfloat16 (default)
-    BENCH_DTYPE=float32 python -m subgnn_tpu_torch.bench
-    python -m subgnn_tpu_torch.bench --profile 5
+`build_flagship` and `build_training_fixture` are the port's copies of
+__graft_entry__._build_flagship and _build_training_fixture: the same numpy
+draws in the same order, so the same seed gives the same batches, splits
+and anchors as the JAX package's. `bench_batch` is one training batch at
+bench.py's flagship widths (`flagship_hparams`: D=128, 2 layers, all three
+channels, B=1280 in bf16 or B=512 in fp32, gather plans and compact
+anchor-column similarities). `profile_steps` times steps unprofiled and
+traced and prints the device's busy time and idle share; `device_sampler`
+times the device triangular-walk sampler; `card` names the card.
 
-Prints ONE JSON line on stdout:
-    {"metric": "mpn_edges_per_s", "value": N, "unit": "edges/s",
-     "run_spread": [...], "dtype": "...", "step": "cuda_graph",
-     "anchor_patch_samples_per_s": M}
-and on stderr the card's name and power limit and the eager step's rate
-beside the graph's. The measured step is the one the fused trainer runs:
-the training step captured once as a CUDA graph (train/graphs.py) and
-replayed, the counterpart of bench.py:129-136's 50 steps in one
-`fori_loop` dispatch. `--profile N` then, for the replayed and for the
-eager step, times N more steps without the profiler, traces N more with
-torch.profiler, and prints to stderr the wall time per step of both, the
-device busy time per step (from the trace), the device's idle share
-against each wall time, the device activities per step, and the ops with
-the most device time.
-
-The metric counts anchor-patch -> CC message edges processed per second by
-the full training step (forward + backward, with the embedding-table
-gradient through the plan kernel, + Adam) at the flagship configuration of
-bench.py: D=128, 2 layers, all three channels, B=1280 in bf16 or B=512 in
-fp32, C=3 CCs of up to 16 nodes, an 8192-node table, a 150-patch structure
-pool, gather plans and compact anchor-column similarities. Each timed run
-is 50 steps between CUDA events after a synchronize; the value is the
-median of 3 runs, after one warm-up run; graph and eager runs alternate.
-
-`anchor_patch_samples_per_s` is the device triangular-walk sampler's rate
-at bench.py:174-211's shape (`device_sampler`: 8192 nodes, 4096 walks of
-24, rw_beta 0.65, 8 rounds; warm-up untimed).
-
-Also the port's copies of __graft_entry__._build_flagship and
-_build_training_fixture: the same numpy draws in the same order, so the same
-seed gives the same batches, splits and anchors as the JAX package's.
+The port's throughput is measured by its benchmark (`benchmark/`,
+BENCHMARK.json), not here.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import subprocess
 import sys
 import time
@@ -50,10 +25,7 @@ import torch
 
 from .config import HParams
 from .data.dataset import SubgraphData
-from .device import resolve_device
 from .models.subgnn import CHANNEL_CC_KEYS, SubGNNModel
-
-STEPS, RUNS = 50, 3
 
 
 def build_flagship(rng_seed=0, n_nodes=256, n_sub=32, C=3, L=8, n_pool=40,
@@ -299,19 +271,6 @@ def profile_steps(step, n: int, label: str = "step", file=None,
                                         max_name_column_width=60), file=file)
 
 
-def timed_run(step) -> float:
-    """Seconds of STEPS calls of `step` between CUDA events."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(STEPS):
-        step()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / 1e3
-
-
 def device_sampler(device, n_nodes: int = 8192, n_walks: int = 4096,
                    walk_len: int = 24, rounds: int = 8,
                    rw_beta: float = 0.65):
@@ -348,65 +307,3 @@ def device_sampler(device, n_nodes: int = 8192, n_walks: int = 4096,
     end.record()
     torch.cuda.synchronize()
     return n_walks * rounds / (start.elapsed_time(end) / 1e3), g, walks
-
-
-def main(argv=None) -> int:
-    from .ops import embedding
-    from .train.graphs import StepGraph
-    from .train.loop import make_optimizer, mpn_edges_per_step, train_step
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="trace N more steps with torch.profiler")
-    args = ap.parse_args(argv)
-    dev = resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dtype = os.environ.get("BENCH_DTYPE", "bfloat16")
-    model, hp, params, state, batch, anchors = bench_batch(dtype, dev)
-    tx = make_optimizer(hp.replace(learning_rate=1e-3))
-    opt_state = tx.init(params)
-
-    def step():
-        train_step(model, tx, params, opt_state, state, batch, anchors)
-
-    graph = StepGraph(step, dev)
-    for fn in (step, graph):                                # warm-up
-        for _ in range(STEPS):
-            fn()
-    embedding.segment_matmul.launches = 0
-    graph_s, eager_s = [], []
-    for _ in range(RUNS):
-        graph_s.append(timed_run(graph))
-        eager_s.append(timed_run(step))
-    launches = embedding.segment_matmul.launches
-    if launches != 2 * 2 * STEPS * RUNS:
-        raise RuntimeError(f"segment_matmul launched {launches} times in "
-                           f"{2 * STEPS * RUNS} steps")
-    B, C = batch["cc_ids"].shape[:2]
-    edges = mpn_edges_per_step(hp, B, C) * STEPS
-    print(card(), file=sys.stderr)
-    print(f"eager step: mpn_edges_per_s {edges / float(np.median(eager_s))!r}"
-          f" (runs {[edges / t for t in eager_s]!r}); graph step "
-          f"{edges / float(np.median(graph_s))!r}; ms/step eager "
-          f"{float(np.median(eager_s)) / STEPS * 1e3!r}, graph "
-          f"{float(np.median(graph_s)) / STEPS * 1e3!r}; captures "
-          f"{graph.captures}", file=sys.stderr)
-    sampler_rate, _, _ = device_sampler(dev)
-    print(json.dumps({
-        "metric": "mpn_edges_per_s",
-        "value": edges / float(np.median(graph_s)),
-        "unit": "edges/s",
-        "run_spread": [edges / t for t in graph_s],
-        "dtype": hp.dtype,
-        "step": "cuda_graph",
-        "anchor_patch_samples_per_s": sampler_rate,
-    }))
-    if args.profile:
-        profile_steps(graph, args.profile, "graph replay")
-        profile_steps(step, args.profile, "eager")
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -53,7 +53,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -72,6 +71,7 @@ from .checkpoint import (TopKCheckpoints, load_checkpoint,
 from .graphs import StepGraph
 from .plans import PlanBuilder, batch_plans, epoch_plans
 from .sims import compact_sims_for_batch, epoch_compact_sims
+from .spans import Spans, begin_fit
 from .tb_writer import TBWriter
 
 # combined NP-sim bytes (train+val) above which streaming batches carry
@@ -84,7 +84,7 @@ FUSED_RESIDENT_BYTES = 1 << 30
 
 def mpn_edges_per_step(hp: HParams, batch_size: int, max_n_cc: int) -> int:
     """Anchor-patch -> CC message edges processed by one training step (the
-    throughput unit of the bench and the per-epoch counters)."""
+    unit of fit's per-epoch `train_edges_per_s`)."""
     per_layer = 0
     if hp.use_neighborhood:
         per_layer += hp.n_anchor_patches_N_in + hp.n_anchor_patches_N_out
@@ -207,13 +207,14 @@ class Adam:
     def step(self, params, grads: List[torch.Tensor],
              opt_state: Dict[str, Any]) -> None:
         """Update the trainable leaves of `params` in place; `grads` are
-        theirs, in `trainable` order (overwritten: clipped in place)."""
+        theirs, in `trainable` order (overwritten: clipped in place, each
+        leaf's once, where one tensor is two leaves' gradient)."""
         leaves = self.trainable(params)
         if self.grad_clip and self.grad_clip > 0:
             norm = self.norm(grads)
             scale = torch.where(norm < self.grad_clip,
                                 torch.ones_like(norm), self.grad_clip / norm)
-            torch._foreach_mul_(grads, scale)
+            torch._foreach_mul_(_unique(grads), scale)
         mu, nu = opt_state["mu"], opt_state["nu"]
         opt_state["count"].add_(1)
         count = opt_state["count"].to(torch.float32)
@@ -232,6 +233,20 @@ class Adam:
             torch._foreach_add_(upd, leaves, alpha=self.weight_decay)
         torch._foreach_mul_(upd, -self.lr)
         torch._foreach_add_(leaves, upd)
+
+
+def _unique(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """`grads` with each tensor (the same elements) once, for an in-place
+    update that must scale each leaf's gradient once: autograd can hand one
+    tensor to two leaves (the LSTM's `b_ih + b_hh` gives both biases the
+    sum's gradient)."""
+    seen, out = set(), []
+    for g in grads:
+        key = (g.data_ptr(), g.shape, g.stride())
+        if key not in seen:
+            seen.add(key)
+            out.append(g)
+    return out
 
 
 def global_norm(grads: List[torch.Tensor],
@@ -356,6 +371,8 @@ class Trainer:
         self.fused: Optional[bool] = None      # the mode of the last fit
         self._grad_norms: List[float] = []     # debug_mode, per step
         self._graphs: List[StepGraph] = []
+        # the last fit's spans and counters (train/spans.py)
+        self.spans = Spans()
         # this rank's [lo, hi) of the table on a node axis (set by fit)
         self._rows: Optional[tuple] = None
         # (shape, bytes) of what the last fit held on the device: the
@@ -612,7 +629,11 @@ class Trainer:
         restarts from the caller's anchors there), so the resumed run
         continues the uninterrupted trajectory. `profile_dir`: trace the
         fit with torch.profiler (CPU, and CUDA on the card) into that
-        directory, in TensorBoard's layout."""
+        directory, in TensorBoard's layout.
+
+        `self.spans` records the fit's spans and counters per epoch
+        (train/spans.py, which names them); a metric's `epoch_time_s` is
+        its epoch's train and eval phases on their clock."""
         with _profiler(profile_dir, self.device):
             return self._fit(params, state, train_data, val_data,
                              anchors_by_split, seed, on_epoch_end, log_fn,
@@ -646,6 +667,7 @@ class Trainer:
         self.metric_scores = []
         self._grad_norms = []
         self._graphs = []
+        self.spans = begin_fit()
         if self.ckpt:
             self.ckpt.kept = []
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -718,71 +740,83 @@ class Trainer:
         else:
             train_dev = device_batch(anchors_by_split["train"], dev)
 
+        rec = self.spans
         for epoch in range(start_epoch, hp.max_epochs):
-            t0 = time.time()
-            if fused:
-                sched = (pending if pending is not None
-                         else run.schedule(run.draw_order(),
-                                           anchors_by_split["train"]))
-                losses = run.train_epoch(sched)
-                # epoch e+1's host work overlaps epoch e's replays
-                pending = (run.schedule(run.draw_order(),
-                                        anchors_by_split["train"])
-                           if prefetch and epoch + 1 < hp.max_epochs
-                           else None)
-                if mesh is not None:
-                    MX.all_reduce_sum_([losses], mesh)
-                train_losses = losses.cpu().double().tolist()
-            else:
-                train_losses = self._stream_epoch(
-                    train_data, anchors_by_split["train"], train_dev,
-                    builder, rng_np, drop_last, compact, keep_mask)
-            train_time = time.time() - t0
-
-            val_metrics = (run.eval_epoch() if fused else self.evaluate(
-                val_data, anchors_by_split["val"], "val"))
-            val_metrics["train_loss"] = float(np.mean(train_losses))
-            val_metrics["epoch"] = epoch
-            val_metrics["epoch_time_s"] = time.time() - t0
-            val_metrics["train_edges_per_s"] = (
-                edges_per_step * len(train_losses) / max(train_time, 1e-9))
-            if hp.debug_mode and self._grad_norms:
-                val_metrics["grad_norm"] = float(np.mean(
-                    self._grad_norms[-max(len(train_losses), 1):]))
-            self.metric_scores.append(val_metrics)
-            if self.tb:
-                self.tb.add_scalars(val_metrics, epoch)
-            if self._saving:
-                # a collective on a node axis: every rank, every epoch
-                saved_params, saved_opt = self.whole_params()
-            if self.ckpt:
-                self.ckpt.maybe_save(
-                    epoch, val_metrics, saved_params, self.state,
-                    self.tx.host_state(saved_opt),
-                    global_step=self.global_step,
-                    rng_state=generator.get_state().numpy())
-            if log_fn and lead:
-                log_fn(f"epoch {epoch}: "
-                       f"train_loss={val_metrics['train_loss']:.4f} "
-                       f"val_micro_f1={val_metrics['val_micro_f1']:.4f} "
-                       f"val_acc={val_metrics['val_acc']:.4f} "
-                       f"val_auroc={val_metrics['val_auroc']:.4f} "
-                       f"({val_metrics['epoch_time_s']:.1f}s)")
-            if metrics_callback is not None:
-                metrics_callback(epoch, val_metrics)  # may raise (pruning)
-            if on_epoch_end is not None:
-                new_anchors = on_epoch_end(epoch)
-                if new_anchors:
-                    anchors_by_split.update(new_anchors)
+            with rec.epoch(epoch) as epoch_span:
+                with rec.span("fit.train") as train_span:
                     if fused:
-                        run.set_anchors(anchors_by_split)
-                        if pending is not None:
-                            # keep the drawn order, rebuild its plans
-                            pending = run.schedule(
-                                pending[0], anchors_by_split["train"])
+                        sched = (pending if pending is not None
+                                 else run.schedule(run.draw_order(),
+                                                   anchors_by_split["train"]))
+                        losses = run.train_epoch(sched)
+                        # epoch e+1's host work overlaps epoch e's replays
+                        pending = (run.schedule(run.draw_order(),
+                                                anchors_by_split["train"])
+                                   if prefetch and epoch + 1 < hp.max_epochs
+                                   else None)
+                        if mesh is not None:
+                            MX.all_reduce_sum_([losses], mesh)
+                        with rec.span("fit.train.wait"):
+                            train_losses = losses.cpu().double().tolist()
                     else:
-                        train_dev = device_batch(
-                            anchors_by_split["train"], dev)
+                        train_losses = self._stream_epoch(
+                            train_data, anchors_by_split["train"], train_dev,
+                            builder, rng_np, drop_last, compact, keep_mask)
+                with rec.span("fit.eval") as eval_span:
+                    val_metrics = (run.eval_epoch() if fused
+                                   else self.evaluate(val_data,
+                                                      anchors_by_split["val"],
+                                                      "val"))
+                # train and eval, before the epoch end, on the spans' clock
+                train_time = (train_span.end - epoch_span.start) * 1e-9
+                val_metrics["train_loss"] = float(np.mean(train_losses))
+                val_metrics["epoch"] = epoch
+                val_metrics["epoch_time_s"] = (
+                    (eval_span.end - epoch_span.start) * 1e-9)
+                val_metrics["train_edges_per_s"] = (
+                    edges_per_step * len(train_losses) / max(train_time, 1e-9))
+                if hp.debug_mode and self._grad_norms:
+                    val_metrics["grad_norm"] = float(np.mean(
+                        self._grad_norms[-max(len(train_losses), 1):]))
+                self.metric_scores.append(val_metrics)
+                with rec.span("fit.epoch_end"):
+                    if self.tb:
+                        self.tb.add_scalars(val_metrics, epoch)
+                    if self._saving:
+                        # a collective on a node axis: every rank, every
+                        # epoch
+                        saved_params, saved_opt = self.whole_params()
+                    if self.ckpt:
+                        self.ckpt.maybe_save(
+                            epoch, val_metrics, saved_params, self.state,
+                            self.tx.host_state(saved_opt),
+                            global_step=self.global_step,
+                            rng_state=generator.get_state().numpy())
+                    if log_fn and lead:
+                        log_fn(f"epoch {epoch}: "
+                               f"train_loss={val_metrics['train_loss']:.4f} "
+                               f"val_micro_f1="
+                               f"{val_metrics['val_micro_f1']:.4f} "
+                               f"val_acc={val_metrics['val_acc']:.4f} "
+                               f"val_auroc={val_metrics['val_auroc']:.4f} "
+                               f"({val_metrics['epoch_time_s']:.1f}s)")
+                    if metrics_callback is not None:
+                        # may raise (pruning)
+                        metrics_callback(epoch, val_metrics)
+                    if on_epoch_end is not None:
+                        new_anchors = on_epoch_end(epoch)
+                        if new_anchors:
+                            anchors_by_split.update(new_anchors)
+                            if fused:
+                                run.set_anchors(anchors_by_split)
+                                if pending is not None:
+                                    # keep the drawn order, rebuild its
+                                    # plans
+                                    pending = run.schedule(
+                                        pending[0], anchors_by_split["train"])
+                            else:
+                                train_dev = device_batch(
+                                    anchors_by_split["train"], dev)
         if run is not None:
             run.release()      # the graphs' memory pools
         return self.metric_scores[-1] if self.metric_scores else {}
@@ -1061,14 +1095,19 @@ class _FusedRun:
         """An epoch's order, stacked gather plans and compact sims (host
         numpy work, for this rank's columns of the order), then one copy of
         each to the device."""
-        cols = order[:, self.cols]
-        extras = epoch_plans(self.builder, self.hp, self.train_data.cc_ids,
-                             anchors_np, cols)
-        if self.compact:
-            extras.update(epoch_compact_sims(self.train_data.NP_sim,
-                                             anchors_np, self.hp, cols))
-        return (order, self._put(cols.astype(np.int64)),
-                {k: self._put(v) for k, v in extras.items()})
+        rec = self.tr.spans
+        with rec.span("fit.schedule"):
+            cols = order[:, self.cols]
+            with rec.span("fit.schedule.plans"):
+                extras = epoch_plans(self.builder, self.hp,
+                                     self.train_data.cc_ids, anchors_np, cols)
+            if self.compact:
+                with rec.span("fit.schedule.sims"):
+                    extras.update(epoch_compact_sims(
+                        self.train_data.NP_sim, anchors_np, self.hp, cols))
+            with rec.span("fit.schedule.put"):
+                return (order, self._put(cols.astype(np.int64)),
+                        {k: self._put(v) for k, v in extras.items()})
 
     def _val_extras(self, anchors_np):
         if not self.compact:
@@ -1170,13 +1209,16 @@ class _FusedRun:
         if self.train_graph is None or _layout(extras) != self.train_key:
             self._build_train(extras)      # the plans' tile counts grew
         buf, nb = self.train_buf, order.shape[0]
-        losses = torch.empty(nb, device=self.device)
-        for i in range(nb):
-            buf["idx"].copy_(order[i])
-            for k, v in extras.items():
-                _load(buf["extras"][k], v, i)
-            self.train_graph()
-            losses[i].copy_(buf["loss"])
+        rec = self.tr.spans
+        with rec.span("fit.train.launch"):
+            losses = torch.empty(nb, device=self.device)
+            for i in range(nb):
+                buf["idx"].copy_(order[i])
+                for k, v in extras.items():
+                    _load(buf["extras"][k], v, i)
+                self.train_graph()
+                losses[i].copy_(buf["loss"])
+        rec.count("replays", nb)
         self.tr.global_step += nb
         return losses
 
@@ -1187,28 +1229,33 @@ class _FusedRun:
         if self.eval_graph is None:
             self._build_eval()
         buf, nb = self.eval_buf, self.val_order.shape[0]
-        losses = torch.empty(nb, device=self.device)
-        logits = torch.empty((nb,) + tuple(buf["logits"].shape),
-                             device=self.device)
-        for i in range(nb):
-            buf["idx"].copy_(self.val_order[i])
-            buf["valid"].copy_(self.val_valid[i])
-            for k, v in self.val_extras.items():
-                _load(buf["extras"][k], v, i)
-            self.eval_graph()
-            losses[i].copy_(buf["loss"])
-            logits[i].copy_(buf["logits"])
-        v_losses = losses.cpu().double().numpy()
-        v_logits = logits.cpu().numpy()
-        valid, order = self.val_valid_np, self.val_order_np
-        labels = np.asarray(self.val_data.labels)
-        ml = self.tr.model.multilabel
-        accs, f1s = [], []
-        for i in range(nb):
-            lg, lb = v_logits[i][valid[i]], labels[order[i][valid[i]]]
-            accs.append(M.calc_accuracy(lg, lb, ml))
-            f1s.append(M.calc_f1(lg, lb, "macro", ml))
-        flat = valid.reshape(-1)
-        return self.tr._metrics(
-            "val", v_logits.reshape(-1, v_logits.shape[-1])[flat],
-            labels[order.reshape(-1)[flat]], list(v_losses), accs, f1s)
+        rec = self.tr.spans
+        with rec.span("fit.eval.launch"):
+            losses = torch.empty(nb, device=self.device)
+            logits = torch.empty((nb,) + tuple(buf["logits"].shape),
+                                 device=self.device)
+            for i in range(nb):
+                buf["idx"].copy_(self.val_order[i])
+                buf["valid"].copy_(self.val_valid[i])
+                for k, v in self.val_extras.items():
+                    _load(buf["extras"][k], v, i)
+                self.eval_graph()
+                losses[i].copy_(buf["loss"])
+                logits[i].copy_(buf["logits"])
+        rec.count("replays", nb)
+        with rec.span("fit.eval.wait"):
+            v_losses = losses.cpu().double().numpy()
+            v_logits = logits.cpu().numpy()
+        with rec.span("fit.eval.metrics"):
+            valid, order = self.val_valid_np, self.val_order_np
+            labels = np.asarray(self.val_data.labels)
+            ml = self.tr.model.multilabel
+            accs, f1s = [], []
+            for i in range(nb):
+                lg, lb = v_logits[i][valid[i]], labels[order[i][valid[i]]]
+                accs.append(M.calc_accuracy(lg, lb, ml))
+                f1s.append(M.calc_f1(lg, lb, "macro", ml))
+            flat = valid.reshape(-1)
+            return self.tr._metrics(
+                "val", v_logits.reshape(-1, v_logits.shape[-1])[flat],
+                labels[order.reshape(-1)[flat]], list(v_losses), accs, f1s)

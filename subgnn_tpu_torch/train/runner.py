@@ -52,6 +52,7 @@ from ..sampling.walks import (perform_random_walks,
 from .checkpoint import dump_json, load_checkpoint, load_params_filtered
 from .loop import Trainer, make_optimizer
 from .sims import compact_sims_for_batch
+from .spans import span
 
 SPLITS = ("train", "val", "test")
 SPLIT_TAG = {"train": 0, "val": 1, "test": 2}
@@ -633,18 +634,18 @@ class SubGNNPipeline:
                 cache.move_to_end(int(s))
             while len(cache) > self.BFS_ROW_CACHE_SIZE:
                 cache.popitem(last=False)
-        t0 = time.time()
-        lut = np.zeros(self.graph.n_nodes + 1, np.int32)
-        lut[srcs] = np.arange(1, len(srcs) + 1, dtype=np.int32)
-        np_sim = compute_shortest_path_similarities(rows, lut[cc_ids])
-        timings["np_sim"] = time.time() - t0
+        with span("predict.np_sim") as s:
+            lut = np.zeros(self.graph.n_nodes + 1, np.int32)
+            lut[srcs] = np.arange(1, len(srcs) + 1, dtype=np.int32)
+            np_sim = compute_shortest_path_similarities(rows, lut[cc_ids])
+        timings["np_sim"] = s.seconds
         border = None
         if hp.use_neighborhood:
-            t0 = time.time()
-            border = border_sets_from_rows(srcs, rows, cc_ids,
-                                           hp.neigh_sample_border_size,
-                                           self.graph.n_nodes)
-            timings["border_sets"] = time.time() - t0
+            with span("predict.border_sets") as s:
+                border = border_sets_from_rows(srcs, rows, cc_ids,
+                                               hp.neigh_sample_border_size,
+                                               self.graph.n_nodes)
+            timings["border_sets"] = s.seconds
         return np_sim, border
 
     def _request_anchors(self, cc_ids, border, node_lists, seed):
@@ -694,7 +695,9 @@ class SubGNNPipeline:
         max_n_cc/max_len_cc pin the padded CC shape.
 
         Returns {"logits": (N, num_classes) float32, "probs", "pred",
-                 "timings": per-stage wall-clock seconds}.
+                 "timings": per-stage seconds, each a span's
+                 (train/spans.py: perf_counter, and a profiler range
+                 while torch.profiler records)}.
         """
         hp = self.hp
         if not self._loaded:
@@ -706,37 +709,62 @@ class SubGNNPipeline:
             state = {}
         seed = hp.seed if seed is None else seed
         timings: Dict[str, float] = {}
-        t_all = time.time()
+        with span("predict") as total:
+            logits = self._predict_logits(node_lists, params, state, seed,
+                                          anchors, max_n_cc, max_len_cc,
+                                          timings)
+        timings["total"] = total.seconds
+        if self.multilabel:
+            probs = 1.0 / (1.0 + np.exp(-logits))
+            pred = (probs > 0.5).astype(np.int32)
+        else:
+            e = np.exp(logits - logits.max(axis=1, keepdims=True))
+            probs = e / e.sum(axis=1, keepdims=True)
+            pred = probs.argmax(axis=1).astype(np.int32)
+        return {"logits": logits, "probs": probs, "pred": pred,
+                "timings": timings}
 
-        t0 = time.time()
-        cc_ids = initialize_cc_ids(self.graph, node_lists, max_n_cc=max_n_cc,
-                                   max_len_cc=max_len_cc)         # (N, C, L)
-        timings["cc_split"] = time.time() - t0
+    def _predict_logits(self, node_lists, params, state, seed, anchors,
+                        max_n_cc, max_len_cc, timings) -> np.ndarray:
+        """predict's stages, each a span whose seconds go to `timings`;
+        the (N, num_classes) float32 logits."""
+        hp = self.hp
+        with span("predict.cc_split") as s:
+            cc_ids = initialize_cc_ids(self.graph, node_lists,
+                                       max_n_cc=max_n_cc,
+                                       max_len_cc=max_len_cc)  # (N, C, L)
+        timings["cc_split"] = s.seconds
         n = len(node_lists)
 
         np_sim = border = int_s = bor_s = None
         with ThreadPoolExecutor(max_workers=1) as pool:
             bfs_future = None
             if hp.use_neighborhood or hp.use_position:
-                t_bfs = time.time()
+                # open from the submission to the result (the worker's own
+                # stages are spans of their own)
+                bfs_wall = span("predict.bfs_rows").__enter__()
                 bfs_future = pool.submit(self._bfs_rows, cc_ids, timings)
             if hp.use_structure:
                 if self.structure_anchors is None:
                     raise RuntimeError("call precompute() first")
-                t0 = time.time()
-                int_s, bor_s = structure_similarities_both(
-                    self.graph, cc_ids, self.structure_anchors,
-                    anchor_cache=self._serving_anchor_seqs,
-                    device=self.device)
-                timings["structure_sims"] = time.time() - t0
+                with span("predict.structure_sims") as s:
+                    int_s, bor_s = structure_similarities_both(
+                        self.graph, cc_ids, self.structure_anchors,
+                        anchor_cache=self._serving_anchor_seqs,
+                        device=self.device)
+                timings["structure_sims"] = s.seconds
             if bfs_future is not None:
-                np_sim, border = bfs_future.result()
-                timings["bfs_rows_wall"] = time.time() - t_bfs
+                try:
+                    np_sim, border = bfs_future.result()
+                finally:
+                    bfs_wall.__exit__(None, None, None)
+                timings["bfs_rows_wall"] = bfs_wall.seconds
 
         if anchors is None:
-            t0 = time.time()
-            anchors = self._request_anchors(cc_ids, border, node_lists, seed)
-            timings["anchors"] = time.time() - t0
+            with span("predict.anchors") as s:
+                anchors = self._request_anchors(cc_ids, border, node_lists,
+                                                seed)
+            timings["anchors"] = s.seconds
         # host copies feed the compact-sims gather, device copies the model
         anchors = {k: (v.cpu().numpy() if torch.is_tensor(v)
                        else np.asarray(v)) for k, v in anchors.items()}
@@ -745,10 +773,11 @@ class SubGNNPipeline:
 
         cc_tables = None
         if hp.trainable_cc:
-            t0 = time.time()
-            cc_tables = {k: torch.as_tensor(v, device=self.device)
-                         for k, v in self._cc_tables_from_ids(cc_ids).items()}
-            timings["cc_tables"] = time.time() - t0
+            with span("predict.cc_tables") as s:
+                cc_tables = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in self._cc_tables_from_ids(
+                                 cc_ids).items()}
+            timings["cc_tables"] = s.seconds
 
         labels = (np.zeros((n, self.num_classes), np.float32)
                   if self.multilabel else np.zeros(n, np.int64))
@@ -769,8 +798,7 @@ class SubGNNPipeline:
         out = []
         B = hp.batch_size
         arange_b = torch.arange(B, device=self.device)
-        t_fwd = time.time()
-        with torch.inference_mode():
+        with span("predict.forward") as s, torch.inference_mode():
             for batch in data.batches(B, shuffle=False, drop_last=False,
                                       include_np_sim=False):
                 idx = batch["subgraph_idx"]
@@ -791,19 +819,8 @@ class SubGNNPipeline:
                        else {k: v[tidx] for k, v in cc_tables.items()})
                 logits, _ = model(params, state, tb, banchors, cc_tables=bcc)
                 out.append(logits.cpu().numpy()[batch["valid"]])
-        timings["forward"] = time.time() - t_fwd
-        timings["total"] = time.time() - t_all
-        logits = np.concatenate(out).astype(np.float32)
-        if self.multilabel:
-            probs = 1.0 / (1.0 + np.exp(-logits))
-            pred = (probs > 0.5).astype(np.int32)
-        else:
-            e = np.exp(logits - logits.max(axis=1, keepdims=True))
-            probs = e / e.sum(axis=1, keepdims=True)
-            pred = probs.argmax(axis=1).astype(np.int32)
-        return {"logits": logits, "probs": probs, "pred": pred,
-                "timings": timings}
-
+        timings["forward"] = s.seconds
+        return np.concatenate(out).astype(np.float32)
 
 def load_best_hyperparams(path: str | Path) -> HParams:
     """Load a frozen best_model_hyperparameters/*/hyperparams.json dict."""
