@@ -16,10 +16,13 @@ updates the leaves in place and keeps its step count on the device.
   * fused (the default whenever every batch is full, `debug_mode` is off
     and the resident splits take under 1 GiB): both splits stay on the
     device, each step gathers its batch there from an index row, the host
-    builds an epoch's order, stacked gather plans and compact similarities
-    at once and copies them to the device in one go, and each train and
-    eval step is one replay of a CUDA graph (train/graphs.py) fed by
-    device-to-device copies into its static buffers. Losses are read once
+    builds an epoch's order and stacked gather plans at once and copies
+    them to the device in one go, and each train and eval step is one
+    replay of a CUDA graph (train/graphs.py) fed by device-to-device copies
+    into its static buffers. The compact similarities are gathered inside
+    the step from NP sims kept on the device (`sims_on_device`), or, where
+    those stay on the host (a node axis, or NP sims over half the card's
+    free memory), built by the host with the plans. Losses are read once
     an epoch; the host prepares epoch e+1 while the device runs epoch e.
     On the CPU the same path calls the step instead of replaying it;
   * streaming: one host batch per step, copied to the device, the loss
@@ -70,7 +73,8 @@ from .checkpoint import (TopKCheckpoints, load_checkpoint,
                          load_params_filtered)
 from .graphs import StepGraph
 from .plans import PlanBuilder, batch_plans, epoch_plans
-from .sims import compact_sims_for_batch, epoch_compact_sims
+from .sims import (compact_sims_for_batch, device_compact_sims,
+                   epoch_compact_sims)
 from .spans import Spans, begin_fit
 from .tb_writer import TBWriter
 
@@ -80,6 +84,26 @@ from .tb_writer import TBWriter
 COMPACT_NP_SIM_BYTES = 256 << 20
 # resident bytes of both splits under which fit takes the fused mode
 FUSED_RESIDENT_BYTES = 1 << 30
+
+
+def _free_device_bytes(device: torch.device) -> Optional[int]:
+    """Free memory of a CUDA device, or None where the arrays stay in the
+    host's memory (the CPU)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
+def sims_fit_on_device(np_bytes: int, device: torch.device,
+                       mesh: Optional[MX.Mesh]) -> bool:
+    """Whether a fused fit with compact sims keeps both splits' NP sims
+    (`np_bytes` together) on the device and gathers each step's anchor
+    columns there: off a node axis (whose ranks hold slices of the
+    columns), where they take at most half the device's free memory."""
+    if mesh is not None and mesh.sharded:
+        return False
+    free = _free_device_bytes(device)
+    return free is None or np_bytes <= free // 2
 
 
 def mpn_edges_per_step(hp: HParams, batch_size: int, max_n_cc: int) -> int:
@@ -369,6 +393,7 @@ class Trainer:
         # None = chosen by fit (the JAX rules); set True/False to force
         self.compact_sims: Optional[bool] = None
         self.fused: Optional[bool] = None      # the mode of the last fit
+        self._sims_on_device: Optional[bool] = None
         self._grad_norms: List[float] = []     # debug_mode, per step
         self._graphs: List[StepGraph] = []
         # the last fit's spans and counters (train/spans.py)
@@ -378,6 +403,13 @@ class Trainer:
         # (shape, bytes) of what the last fit held on the device: the
         # table, Adam's moments of it, the NP sims (resident, or a batch's)
         self.held: Dict[str, Any] = {}
+
+    @property
+    def sims_on_device(self) -> Optional[bool]:
+        """Whether the last fit kept the NP sims on the device and its
+        steps gathered their compact sims there (`sims_fit_on_device`);
+        None before a fit."""
+        return self._sims_on_device
 
     def _check_mesh(self) -> None:
         """The JAX trainer's checks (loop.py:411-416), and the trainer's
@@ -717,6 +749,11 @@ class Trainer:
         drop_last = hp.batch_size <= n
         fused, compact = self._select_mode(train_data, val_data, drop_last)
         self.fused = fused
+        np_sims = [d.NP_sim for d in (train_data, val_data)]
+        self._sims_on_device = (
+            fused and compact and all(a is not None for a in np_sims)
+            and sims_fit_on_device(sum(a.nbytes for a in np_sims), dev,
+                                   mesh))
         # own the dict: resampled anchors never reach the caller's splits
         anchors_by_split = dict(anchors_by_split)
         # one epoch-order shuffle per skipped epoch, as the JAX trainer
@@ -730,7 +767,8 @@ class Trainer:
         prefetch = False
         if fused:
             run = _FusedRun(self, train_data, val_data, anchors_by_split,
-                            compact, generator, builder, rng_np)
+                            compact, self._sims_on_device, generator,
+                            builder, rng_np)
             # plans and sims follow the anchors, so epoch e+1 is prepared
             # during epoch e only while they stay fixed (JAX: loop.py:548)
             prefetch = not hp.resample_anchor_patches
@@ -1026,10 +1064,20 @@ class _FusedRun:
     (JAX's split_pspecs); a train step takes the data index's columns of
     the epoch order, with the node-group gathers and the gradients'
     all-reduce inside its graph, and an eval step runs the data index's
-    rows of the batch and gathers the logits inside its graph."""
+    rows of the batch and gathers the logits inside its graph.
+
+    With compact sims, `sims_on_device` (`sims_fit_on_device`: no node
+    axis, and the NP sims within half the card's free memory) keeps each
+    split's whole NP sims on the device beside, not in, the split arrays
+    (a step's gather would take its (B, C, n_nodes) rows), and each train
+    and eval step gathers its batch's anchor columns from them
+    (train/sims.py:device_compact_sims), reading the static anchor
+    buffers. Otherwise the host gathers them with each epoch's plans
+    (`schedule`) and once for the val order, and each replay copies its
+    batch's slice into the step's buffers."""
 
     def __init__(self, trainer: "Trainer", train_data, val_data,
-                 anchors_by_split, compact: bool,
+                 anchors_by_split, compact: bool, sims_on_device: bool,
                  generator: torch.Generator, builder: PlanBuilder,
                  rng_np: np.random.Generator):
         hp, dev, mesh = trainer.hp, trainer.device, trainer.mesh
@@ -1043,7 +1091,9 @@ class _FusedRun:
         # this rank's columns of a (n_batches, B) order
         self.cols = slice(None) if mesh is None else mesh.rows(hp.batch_size)
         self.train_data, self.val_data = train_data, val_data
-        self.compact, self.builder, self.rng_np = compact, builder, rng_np
+        self.builder, self.rng_np = builder, rng_np
+        # compact sims that the host gathers and the steps copy in
+        self.host_sims = compact and not sims_on_device
         self.generator = generator
         self.keep_mask = generator_keep_mask(
             generator, None if mesh is None else (mesh.n_data,
@@ -1052,8 +1102,19 @@ class _FusedRun:
                                                   not compact, mesh)
         self.val_arrays = Trainer._device_split(val_data, dev, not compact,
                                                 mesh)
-        trainer._hold("NP_sim", self.train_arrays.get("NP_sim"))
-        trainer._hold("NP_sim_val", self.val_arrays.get("NP_sim"))
+        # each split's whole NP sims, for the steps' compact gathers: a
+        # plain copy to the card (no pinned staging of gigabytes), the
+        # numpy array itself on the CPU where its layout allows
+        self.np_sims = None
+        if sims_on_device:
+            self.np_sims = {
+                s: torch.as_tensor(np.require(d.NP_sim, np.float32,
+                                              ["C", "W"]), device=dev)
+                for s, d in (("train", train_data), ("val", val_data))}
+        held = self.np_sims or {s: a.get("NP_sim") for s, a in (
+            ("train", self.train_arrays), ("val", self.val_arrays))}
+        trainer._hold("NP_sim", held["train"])
+        trainer._hold("NP_sim_val", held["val"])
         self.anchors = {s: device_batch(anchors_by_split[s], dev)
                         for s in ("train", "val")}
         B, n_val = hp.batch_size, len(val_data)
@@ -1092,16 +1153,17 @@ class _FusedRun:
                                     self.rng_np, True)
 
     def schedule(self, order: np.ndarray, anchors_np):
-        """An epoch's order, stacked gather plans and compact sims (host
-        numpy work, for this rank's columns of the order), then one copy of
-        each to the device."""
+        """An epoch's order, stacked gather plans and, where the steps do
+        not gather them on the device, compact sims (host numpy work, for
+        this rank's columns of the order), then one copy of each to the
+        device."""
         rec = self.tr.spans
         with rec.span("fit.schedule"):
             cols = order[:, self.cols]
             with rec.span("fit.schedule.plans"):
                 extras = epoch_plans(self.builder, self.hp,
                                      self.train_data.cc_ids, anchors_np, cols)
-            if self.compact:
+            if self.host_sims:
                 with rec.span("fit.schedule.sims"):
                     extras.update(epoch_compact_sims(
                         self.train_data.NP_sim, anchors_np, self.hp, cols))
@@ -1110,7 +1172,7 @@ class _FusedRun:
                         {k: self._put(v) for k, v in extras.items()})
 
     def _val_extras(self, anchors_np):
-        if not self.compact:
+        if not self.host_sims:
             return {}
         return {k: self._put(v) for k, v in epoch_compact_sims(
             self.val_data.NP_sim, anchors_np, self.hp,
@@ -1118,7 +1180,7 @@ class _FusedRun:
 
     def set_anchors(self, anchors_by_split) -> None:
         """New anchors into the static anchor buffers, which the step
-        graphs read; the val extras follow the val anchors (JAX
+        graphs read; host-gathered val sims follow the val anchors (JAX
         loop.py:650-660). New anchors keep their shapes (as JAX's
         resampling keeps them, so that it never recompiles)."""
         for split in ("train", "val"):
@@ -1165,6 +1227,10 @@ class _FusedRun:
             batch = Trainer._gather_batch(self.train_arrays, buf["idx"],
                                           buf["valid"])
             batch.update(buf["extras"])
+            if self.np_sims is not None:
+                batch.update(device_compact_sims(
+                    self.np_sims["train"], self.anchors["train"], self.hp,
+                    buf["idx"]))
             loss, _, new_state = train_step(
                 tr.model, tr.tx, tr.params, tr.opt_state, tr.state, batch,
                 self.anchors["train"], self.keep_mask, self.mesh, n_valid)
@@ -1190,6 +1256,10 @@ class _FusedRun:
             batch = Trainer._gather_batch(self.val_arrays, idx[self.cols],
                                           valid[self.cols])
             batch.update(buf["extras"])
+            if self.np_sims is not None:
+                batch.update(device_compact_sims(
+                    self.np_sims["val"], self.anchors["val"], self.hp,
+                    idx[self.cols]))
             logits, _ = tr.model(tr.params, tr.state, batch,
                                  self.anchors["val"], train=False,
                                  cc_tables=self.val_cc, mesh=self.mesh)
@@ -1219,6 +1289,7 @@ class _FusedRun:
                 self.train_graph()
                 losses[i].copy_(buf["loss"])
         rec.count("replays", nb)
+        rec.count("device_sims", nb if self.np_sims is not None else 0)
         self.tr.global_step += nb
         return losses
 
@@ -1243,6 +1314,7 @@ class _FusedRun:
                 losses[i].copy_(buf["loss"])
                 logits[i].copy_(buf["logits"])
         rec.count("replays", nb)
+        rec.count("device_sims", nb if self.np_sims is not None else 0)
         with rec.span("fit.eval.wait"):
             v_losses = losses.cpu().double().numpy()
             v_logits = logits.cpu().numpy()

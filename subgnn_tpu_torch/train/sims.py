@@ -1,17 +1,27 @@
-"""Host-side compact NP-similarity gathers (anchor columns only).
+"""Compact NP-similarity gathers (anchor columns only).
 
 Port of subgnn_tpu/train/sims.py. The model only reads the
 (n_sub, max_cc, n_nodes) shortest-path similarity tensor at sampled
-anchor-node columns (reference: subgraph_mpn.py:91-94), and anchors and the
-batch schedule are host-known, so those columns are gathered here in numpy
-and shipped as (L, B, C, A) tensors. Index math mirrors models/subgnn.py
-(same clip semantics), so results equal the full-tensor path.
+anchor-node columns (reference: subgraph_mpn.py:91-94), so a batch carries
+those columns as (L, B, C, A) tensors instead of (B, C, n_nodes) rows.
+Index math mirrors models/subgnn.py (same clip semantics), so results equal
+the full-tensor path.
+
+Two places gather them. On the card a fused fit keeps both splits' NP sims
+resident and each captured step gathers its own batch's columns
+(`device_compact_sims`, called by train/loop.py:_FusedRun's steps): the
+same float32 values the host would copy, at no host cost. The host gathers
+them in numpy (`compact_sims_for_batch`, `epoch_compact_sims`) where the NP
+sims stay off the device: a fit on a node axis (a rank holds a slice of the
+columns), NP sims over half the card's free memory at the fit's start, a
+streaming fit, serving and the benchmark scripts.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .plans import neigh_ids_for_batch
 
@@ -63,3 +73,39 @@ def epoch_compact_sims(np_sim: np.ndarray, anchors, hp,
     if not per_batch:
         return {}
     return {k: np.stack([b[k] for b in per_batch]) for k in per_batch[0]}
+
+
+def device_compact_sims(np_sim: torch.Tensor, anchors, hp,
+                        idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """compact_sims_for_batch on the device, for a fused step to call.
+
+    np_sim:  a split's resident (n_split, C, n_nodes) float32 NP sims,
+             contiguous
+    anchors: the split's device anchor dict (layer-major int64 tensors)
+    idx:     (B,) int64 subgraph indices into the split
+
+    Returns the same keys, shapes and float32 values as the numpy version:
+    neighbourhood and internal position anchors clip to [0, n_nodes - 1],
+    a border position anchor's PAD id reads the last column (numpy's -1).
+    The flat offsets are int64: (idx * C + c) * n_nodes + j passes 2**31
+    on a large split."""
+    out: Dict[str, torch.Tensor] = {}
+    _, C, n_nodes = np_sim.shape
+    flat = np_sim.reshape(-1)
+    # (1, B, C, 1) offset of each row's component slot
+    base = (idx.long()[:, None] * (C * n_nodes)
+            + torch.arange(0, C * n_nodes, n_nodes,
+                           device=idx.device))[None, :, :, None]
+
+    if hp.use_neighborhood:
+        ids = torch.cat([anchors["neigh_int"][:, idx],
+                         anchors["neigh_bor"][:, idx]], dim=-1)  # (L,B,C,A)
+        out["neigh_sims"] = flat[base + (ids - 1).clamp_(0, n_nodes - 1)]
+
+    if hp.use_position:
+        j = (anchors["pos_int"][:, idx] - 1).clamp_(0, n_nodes - 1)  # (L,B,A)
+        out["pos_in_sims"] = flat[base + j[:, :, None, :]]
+        j = torch.remainder(anchors["pos_ext"] - 1, n_nodes)  # (L, A)
+        out["pos_out_sims"] = flat[base + j[:, None, None, :]]
+
+    return out

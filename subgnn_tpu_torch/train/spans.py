@@ -23,7 +23,9 @@ profiler and are not kept. `Trainer.fit` (train/loop.py) records:
         fit.train.launch   static-buffer copies and step-graph replays
         fit.schedule       the next epoch's order, plans and sims:
           fit.schedule.plans   epoch_plans
-          fit.schedule.sims    epoch_compact_sims
+          fit.schedule.sims    epoch_compact_sims, only where the host
+                               gathers the compact sims (the NP sims are
+                               not on the device: Trainer.sims_on_device)
           fit.schedule.put     pinned copies to the device
         fit.train.wait     the host blocked on the train losses
       fit.eval           the validation pass (streaming: the whole of it)
@@ -32,7 +34,10 @@ profiler and are not kept. `Trainer.fit` (train/loop.py) records:
         fit.eval.metrics   per-batch accuracy and F1, AUROC
       fit.epoch_end      TensorBoard, checkpoint, log line, callbacks
 
-and the counter `replays`, the step-graph calls of the epoch.
+and the counters `replays`, the step-graph calls of the epoch, and
+`device_sims`, those of them (train and eval) whose step gathered its
+compact sims from the NP sims on the device (0 where the host gathers them;
+absent in the streaming mode).
 
 `last()` is the recorder of the process's last fit, for readers that see
 no trainer (the benchmark's per-layer metrics).

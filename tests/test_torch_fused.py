@@ -1,15 +1,19 @@
 """The port's fused-epoch trainer against the JAX package's, on the CPU.
 
-On the CPU the fused mode runs the card's code path (resident splits,
-stacked plans and sims copied once an epoch, the batch gathered on the
-device from an index row, losses read once an epoch) and calls the step
+On the CPU the fused mode runs the card's code path (resident splits and
+NP sims, stacked plans copied once an epoch, the batch and its compact sims
+gathered on the device from an index row, losses read once an epoch; the
+host's compact sims where a test takes the device's free memory away) and
+calls the step
 where the card replays its CUDA graph. Inputs come from the training
 fixture both packages build from the same seeded numpy draws
 (`build_training_fixture`), with the JAX weights carried over by
 convert.params_from_jax and dropout off wherever the two packages are
 compared (their generators differ).
 
-Tolerances: stacked plans and compact sims exact (the same numpy work);
+Tolerances: stacked plans and compact sims exact (the same numpy work),
+and so the step's device gather of them and a fit with the NP sims on the
+device against one whose host gathers them (the same float32 values);
 fused fit vs JAX's fused fit, metrics rtol 1e-4 and parameters atol 1e-5
 after 3 epochs (fp32 steps summed in another order by another library);
 fused vs streaming in the port, atol 1e-5 (the JAX test's; the same
@@ -121,6 +125,123 @@ def test_epoch_compact_sims_match_jax():
         np.testing.assert_array_equal(got[k], np.asarray(v), k)
     assert tsims.epoch_compact_sims(data["train"].NP_sim, anchors["train"],
                                     hp, order[:0]) == {}
+
+
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_device_compact_sims_equal_the_host_gathers(split):
+    """The fused step's gather from the resident NP sims equals the host's
+    numpy gather bit for bit, for several index rows, with PAD ids (0)
+    planted in every anchor array and one id past the last node: the
+    neighbourhood and internal position ids clip to [0, n_nodes - 1], a
+    border position PAD reads the last column."""
+    _, hp, _, _, data, anchors, _ = build_training_fixture(
+        hp_overrides=dict(n_layers=2), device="cpu")
+    np_sim = data[split].NP_sim
+    n, n_nodes = np_sim.shape[0], np_sim.shape[2]
+    padded = {k: np.array(v) for k, v in anchors[split].items()}
+    padded["neigh_int"][0, 1, 0, :2] = 0
+    padded["neigh_int"][1, 2, 1, 0] = n_nodes + 3
+    padded["neigh_bor"][1, 1, 1, -1] = 0
+    padded["pos_int"][:, 1, 0] = 0
+    padded["pos_ext"][0, 0] = padded["pos_ext"][1, -1] = 0
+    rows = np.random.default_rng(7).permutation(n)
+    resident = torch.as_tensor(np_sim)
+    for a in (anchors[split], padded):
+        dev_anchors = L.device_batch(a, "cpu")
+        for idx in (rows[:8], rows[-8:], np.array([1, 1, 2, 0, 1, 2, 2, 1])):
+            want = tsims.compact_sims_for_batch(np_sim, a, hp, idx)
+            got = tsims.device_compact_sims(resident, dev_anchors, hp,
+                                            torch.as_tensor(idx).long())
+            assert sorted(got) == sorted(want) == [
+                "neigh_sims", "pos_in_sims", "pos_out_sims"]
+            for k, v in want.items():
+                assert got[k].dtype == torch.float32, k
+                assert tuple(got[k].shape) == v.shape, k
+                np.testing.assert_array_equal(got[k].numpy(), v, k)
+    # the PAD slots read the columns the numpy indices name
+    idx = np.array([1, 0, 2, 1])
+    got = tsims.device_compact_sims(resident, L.device_batch(padded, "cpu"),
+                                    hp, torch.as_tensor(idx))
+    np.testing.assert_array_equal(got["pos_in_sims"][:, 0, :, 0].numpy(),
+                                  np.stack([np_sim[1, :, 0]] * 2))
+    np.testing.assert_array_equal(got["pos_out_sims"][0, :, :, 0].numpy(),
+                                  np_sim[idx, :, n_nodes - 1])
+    np.testing.assert_array_equal(got["neigh_sims"][1, 2, 1, 0].numpy(),
+                                  np_sim[2, 1, n_nodes - 1])
+
+
+@pytest.mark.parametrize("case", ["fixed", "resample"])
+def test_resident_sims_fit_equals_host_sims_fit(case, monkeypatch):
+    """A fused fit whose steps gather their compact sims from the NP sims
+    on the device equals one whose host gathers them (forced by a device
+    that reports no free memory) bit for bit: per-epoch metrics,
+    parameters, state and Adam's moments; `device_sims` counts every
+    replay of the first and none of the second."""
+    over = dict(max_epochs=EPOCHS, lin_dropout=0.2, batch_norm=True,
+                resample_anchor_patches=case == "resample")
+    model, hp, params, state, data, anchors, _ = build_training_fixture(
+        hp_overrides=over, device="cpu")
+    hook = _resampled(anchors) if case == "resample" else None
+    runs = {}
+    for path in ("device", "host"):
+        with monkeypatch.context() as m:
+            if path == "host":
+                m.setattr(L, "_free_device_bytes", lambda device: 0)
+            tr = runs[path] = Trainer(model, hp, device="cpu")
+            tr.fit(params, state, data["train"], data["val"], anchors,
+                   seed=0, on_epoch_end=hook, log_fn=None)
+    d, h = runs["device"], runs["host"]
+    assert d.fused and h.fused and d.compact_sims is h.compact_sims is True
+    assert d.sims_on_device is True and h.sims_on_device is False
+    assert d.fused_captures == h.fused_captures == 2
+    assert d.held["NP_sim"][0] == data["train"].NP_sim.shape
+    assert d.held["NP_sim_val"][0] == data["val"].NP_sim.shape
+    assert "NP_sim" not in h.held
+    for epoch in range(EPOCHS):
+        replays = d.spans.counters[epoch]["replays"]
+        assert replays == h.spans.counters[epoch]["replays"] == 3
+        assert d.spans.counters[epoch]["device_sims"] == replays
+        assert h.spans.counters[epoch]["device_sims"] == 0
+        if epoch < EPOCHS - 1 or case == "resample":
+            names = {r[0] for r in h.spans.rows(epoch)}
+            assert "fit.schedule.sims" in names
+        assert "fit.schedule.sims" not in {r[0] for r in d.spans.rows(epoch)}
+    for md, mh in zip(d.metric_scores, h.metric_scores):
+        for k, v in mh.items():
+            if k != "epoch_time_s" and k != "train_edges_per_s":
+                assert md[k] == v, k
+    _assert_trees(d.params, h.params)
+    _assert_trees(d.state, h.state)
+    for k in ("mu", "nu"):
+        _assert_trees(d.opt_state[k], h.opt_state[k])
+    assert int(d.opt_state["count"]) == int(h.opt_state["count"])
+
+
+class _Mesh:
+    def __init__(self, n_node):
+        self.sharded = n_node > 1
+
+
+@pytest.mark.parametrize("case", [
+    "cpu", "fits_in_half", "over_half", "node_axis", "data_axis"])
+def test_sims_on_device_by_what_the_fit_observes(case, monkeypatch):
+    """The NP sims stay on the device off a node axis and within half the
+    free memory the device reports; the CPU always keeps them."""
+    cuda = torch.device("cuda")
+    free = 1000
+    monkeypatch.setattr(L, "_free_device_bytes",
+                        lambda device: None if device.type == "cpu" else free)
+    want, args = {
+        "cpu": (True, (1 << 40, torch.device("cpu"), None)),
+        "fits_in_half": (True, (500, cuda, None)),
+        "over_half": (False, (501, cuda, None)),
+        "node_axis": (False, (1, cuda, _Mesh(n_node=2))),
+        "data_axis": (True, (500, cuda, _Mesh(n_node=1))),
+    }[case]
+    assert L.sims_fit_on_device(*args) is want
+    if case == "node_axis":
+        assert L.sims_fit_on_device(1, torch.device("cpu"),
+                                    _Mesh(n_node=2)) is False
 
 
 @pytest.mark.parametrize("over", [dict(), dict(trainable_cc=True,
@@ -236,6 +357,7 @@ def test_mode_selection_matches_jax(case, monkeypatch):
     assert ttr.fused == hasattr(jtr, "_fused_train_epoch")
     assert ttr.fused == (case in ("default", "compact_off"))
     assert ttr.compact_sims == jtr.compact_sims
+    assert ttr.sims_on_device is (case == "default")
 
 
 def test_fused_resume_continues_the_uninterrupted_run(tmp_path):
