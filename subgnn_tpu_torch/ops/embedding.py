@@ -1,10 +1,12 @@
-"""Embedding gather whose backward routes gradients by a host-built plan.
+"""Embedding gather whose backward routes gradients by a gather plan.
 
-Port of subgnn_tpu/ops/embedding.py. The anchor and CC ids of a training
-batch are known on the host before the step, so the gradient of
-`table[ids]` is routed by a **gather plan** built in numpy: the flat ids
-sorted once, bucketed by 128-row table block, and cut into tiles of 512 id
-slots (hot blocks such as the PAD row get many tiles, never wider ones).
+Port of subgnn_tpu/ops/embedding.py. The gradient of `table[ids]` is
+routed by a **gather plan** of the ids: the flat ids sorted once, bucketed
+by 128-row table block, and cut into tiles of 512 id slots (hot blocks
+such as the PAD row get many tiles, never wider ones). `make_gather_plan`
+builds one in numpy, from ids known on the host before the step;
+train/plans.py:device_gather_plan builds the same plan on the device,
+inside a fused train step.
 
 `segment_matmul` computes the table gradient from that plan:
 

@@ -16,13 +16,15 @@ updates the leaves in place and keeps its step count on the device.
   * fused (the default whenever every batch is full, `debug_mode` is off
     and the resident splits take under 1 GiB): both splits stay on the
     device, each step gathers its batch there from an index row, the host
-    builds an epoch's order and stacked gather plans at once and copies
-    them to the device in one go, and each train and eval step is one
-    replay of a CUDA graph (train/graphs.py) fed by device-to-device copies
-    into its static buffers. The compact similarities are gathered inside
+    draws an epoch's order and copies it to the device in one go, and each
+    train and eval step is one replay of a CUDA graph (train/graphs.py) fed
+    by device-to-device copies into its static buffers. Each train step
+    builds its batch's gather plans inside the step (`plans_on_device`),
+    except on a node axis, whose host builds them an epoch at a time,
+    stacked, with the order. The compact similarities are gathered inside
     the step from NP sims kept on the device (`sims_on_device`), or, where
     those stay on the host (a node axis, or NP sims over half the card's
-    free memory), built by the host with the plans. Losses are read once
+    free memory), built by the host with the order. Losses are read once
     an epoch; the host prepares epoch e+1 while the device runs epoch e.
     On the CPU the same path calls the step instead of replaying it;
   * streaming: one host batch per step, copied to the device, the loss
@@ -72,7 +74,7 @@ from . import metrics as M
 from .checkpoint import (TopKCheckpoints, load_checkpoint,
                          load_params_filtered)
 from .graphs import StepGraph
-from .plans import PlanBuilder, batch_plans, epoch_plans
+from .plans import PlanBuilder, batch_plans, device_batch_plans, epoch_plans
 from .sims import (compact_sims_for_batch, device_compact_sims,
                    epoch_compact_sims)
 from .spans import Spans, begin_fit
@@ -104,6 +106,14 @@ def sims_fit_on_device(np_bytes: int, device: torch.device,
         return False
     free = _free_device_bytes(device)
     return free is None or np_bytes <= free // 2
+
+
+def plans_fit_on_device(row_range: Optional[tuple]) -> bool:
+    """Whether a fused fit's train steps build their own gather plans on the
+    device (train/plans.py:device_batch_plans): off a node axis, whose
+    ranks' plans route their rows of the table alone (`row_range`) and are
+    built by the host."""
+    return row_range is None
 
 
 def mpn_edges_per_step(hp: HParams, batch_size: int, max_n_cc: int) -> int:
@@ -394,6 +404,7 @@ class Trainer:
         self.compact_sims: Optional[bool] = None
         self.fused: Optional[bool] = None      # the mode of the last fit
         self._sims_on_device: Optional[bool] = None
+        self._plans_on_device: Optional[bool] = None
         self._grad_norms: List[float] = []     # debug_mode, per step
         self._graphs: List[StepGraph] = []
         # the last fit's spans and counters (train/spans.py)
@@ -410,6 +421,13 @@ class Trainer:
         steps gathered their compact sims there (`sims_fit_on_device`);
         None before a fit."""
         return self._sims_on_device
+
+    @property
+    def plans_on_device(self) -> Optional[bool]:
+        """Whether the last fit's train steps built their gather plans on
+        the device (a fused fit, `plans_fit_on_device`); None before a
+        fit."""
+        return self._plans_on_device
 
     def _check_mesh(self) -> None:
         """The JAX trainer's checks (loop.py:411-416), and the trainer's
@@ -754,6 +772,7 @@ class Trainer:
             fused and compact and all(a is not None for a in np_sims)
             and sims_fit_on_device(sum(a.nbytes for a in np_sims), dev,
                                    mesh))
+        self._plans_on_device = fused and plans_fit_on_device(self._rows)
         # own the dict: resampled anchors never reach the caller's splits
         anchors_by_split = dict(anchors_by_split)
         # one epoch-order shuffle per skipped epoch, as the JAX trainer
@@ -768,9 +787,11 @@ class Trainer:
         if fused:
             run = _FusedRun(self, train_data, val_data, anchors_by_split,
                             compact, self._sims_on_device, generator,
-                            builder, rng_np)
-            # plans and sims follow the anchors, so epoch e+1 is prepared
-            # during epoch e only while they stay fixed (JAX: loop.py:548)
+                            None if self._plans_on_device else builder,
+                            rng_np)
+            # host plans and sims follow the anchors, so epoch e+1 is
+            # prepared during epoch e only while they stay fixed (JAX:
+            # loop.py:548)
             prefetch = not hp.resample_anchor_patches
             if prefetch:
                 pending = run.schedule(run.draw_order(),
@@ -861,9 +882,9 @@ class Trainer:
 
     @property
     def fused_captures(self) -> int:
-        """Step graphs the last fit captured (train, eval, and one more
-        train graph each time the plans' tile counts grew); on the CPU,
-        where the card would have captured."""
+        """Step graphs the last fit captured (train, eval, and, where the
+        host builds the plans, one more train graph each time their tile
+        counts grew); on the CPU, where the card would have captured."""
         return sum(g.captures for g in self._graphs)
 
     def _stream_epoch(self, data, anchors_np, anchors_dev, builder, rng_np,
@@ -1066,19 +1087,27 @@ class _FusedRun:
     all-reduce inside its graph, and an eval step runs the data index's
     rows of the batch and gathers the logits inside its graph.
 
+    Without a `builder` (`plans_fit_on_device`: no node axis) each train
+    step builds its batch's gather plans from the ids it gathers
+    (train/plans.py:device_batch_plans), at tile counts no batch exceeds,
+    so the train step is captured once. With one (a node axis, whose plans
+    route a rank's rows alone) the host builds each epoch's plans, stacked,
+    in `schedule`, each replay copies its batch's plans into the step's
+    buffers, and a growth of their tile counts makes a new train step.
+
     With compact sims, `sims_on_device` (`sims_fit_on_device`: no node
     axis, and the NP sims within half the card's free memory) keeps each
     split's whole NP sims on the device beside, not in, the split arrays
     (a step's gather would take its (B, C, n_nodes) rows), and each train
     and eval step gathers its batch's anchor columns from them
     (train/sims.py:device_compact_sims), reading the static anchor
-    buffers. Otherwise the host gathers them with each epoch's plans
+    buffers. Otherwise the host gathers them with each epoch's order
     (`schedule`) and once for the val order, and each replay copies its
     batch's slice into the step's buffers."""
 
     def __init__(self, trainer: "Trainer", train_data, val_data,
                  anchors_by_split, compact: bool, sims_on_device: bool,
-                 generator: torch.Generator, builder: PlanBuilder,
+                 generator: torch.Generator, builder: Optional[PlanBuilder],
                  rng_np: np.random.Generator):
         hp, dev, mesh = trainer.hp, trainer.device, trainer.mesh
         if mesh is not None and dev.type == "cuda" \
@@ -1153,16 +1182,19 @@ class _FusedRun:
                                     self.rng_np, True)
 
     def schedule(self, order: np.ndarray, anchors_np):
-        """An epoch's order, stacked gather plans and, where the steps do
-        not gather them on the device, compact sims (host numpy work, for
+        """An epoch's order and, where the steps do not build them on the
+        device, stacked gather plans and compact sims (host numpy work, for
         this rank's columns of the order), then one copy of each to the
         device."""
         rec = self.tr.spans
         with rec.span("fit.schedule"):
             cols = order[:, self.cols]
-            with rec.span("fit.schedule.plans"):
-                extras = epoch_plans(self.builder, self.hp,
-                                     self.train_data.cc_ids, anchors_np, cols)
+            extras = {}
+            if self.builder is not None:
+                with rec.span("fit.schedule.plans"):
+                    extras = epoch_plans(self.builder, self.hp,
+                                         self.train_data.cc_ids, anchors_np,
+                                         cols)
             if self.host_sims:
                 with rec.span("fit.schedule.sims"):
                     extras.update(epoch_compact_sims(
@@ -1222,11 +1254,16 @@ class _FusedRun:
                "valid": torch.ones(b, dtype=torch.bool, device=dev),
                "loss": torch.zeros((), device=dev),
                "extras": {k: _slot(v) for k, v in extras.items()}}
+        rows = tr.params["node_embed"].shape[0]
 
         def step():
             batch = Trainer._gather_batch(self.train_arrays, buf["idx"],
                                           buf["valid"])
             batch.update(buf["extras"])
+            if self.builder is None:
+                batch.update(device_batch_plans(
+                    self.hp, batch["cc_ids"], self.anchors["train"],
+                    buf["idx"], rows))
             if self.np_sims is not None:
                 batch.update(device_compact_sims(
                     self.np_sims["train"], self.anchors["train"], self.hp,
@@ -1277,7 +1314,7 @@ class _FusedRun:
         device tensor nobody has waited for."""
         _, order, extras = sched
         if self.train_graph is None or _layout(extras) != self.train_key:
-            self._build_train(extras)      # the plans' tile counts grew
+            self._build_train(extras)      # the host plans' tiles grew
         buf, nb = self.train_buf, order.shape[0]
         rec = self.tr.spans
         with rec.span("fit.train.launch"):
@@ -1290,6 +1327,7 @@ class _FusedRun:
                 losses[i].copy_(buf["loss"])
         rec.count("replays", nb)
         rec.count("device_sims", nb if self.np_sims is not None else 0)
+        rec.count("device_plans", nb if self.builder is None else 0)
         self.tr.global_step += nb
         return losses
 

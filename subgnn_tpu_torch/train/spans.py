@@ -22,7 +22,9 @@ profiler and are not kept. `Trainer.fit` (train/loop.py) records:
       fit.train          the train phase (streaming: the whole of it)
         fit.train.launch   static-buffer copies and step-graph replays
         fit.schedule       the next epoch's order, plans and sims:
-          fit.schedule.plans   epoch_plans
+          fit.schedule.plans   epoch_plans, only where the host builds
+                               the plans (a node axis: not
+                               Trainer.plans_on_device)
           fit.schedule.sims    epoch_compact_sims, only where the host
                                gathers the compact sims (the NP sims are
                                not on the device: Trainer.sims_on_device)
@@ -34,10 +36,12 @@ profiler and are not kept. `Trainer.fit` (train/loop.py) records:
         fit.eval.metrics   per-batch accuracy and F1, AUROC
       fit.epoch_end      TensorBoard, checkpoint, log line, callbacks
 
-and the counters `replays`, the step-graph calls of the epoch, and
+and the counters `replays`, the step-graph calls of the epoch;
 `device_sims`, those of them (train and eval) whose step gathered its
-compact sims from the NP sims on the device (0 where the host gathers them;
-absent in the streaming mode).
+compact sims from the NP sims on the device (0 where the host gathers
+them); and `device_plans`, the train replays whose step built its gather
+plans on the device (0 where the host builds them). The counters are
+absent in the streaming mode.
 
 `last()` is the recorder of the process's last fit, for readers that see
 no trainer (the benchmark's per-layer metrics).

@@ -1,11 +1,11 @@
 """The port's fused-epoch trainer against the JAX package's, on the CPU.
 
 On the CPU the fused mode runs the card's code path (resident splits and
-NP sims, stacked plans copied once an epoch, the batch and its compact sims
-gathered on the device from an index row, losses read once an epoch; the
-host's compact sims where a test takes the device's free memory away) and
-calls the step
-where the card replays its CUDA graph. Inputs come from the training
+NP sims, the batch, its gather plans and its compact sims built on the
+device from an index row, losses read once an epoch; the host's stacked
+plans, copied once an epoch, where a test forces the node axis's rule, and
+the host's compact sims where it takes the device's free memory away) and
+calls the step where the card replays its CUDA graph. Inputs come from the training
 fixture both packages build from the same seeded numpy draws
 (`build_training_fixture`), with the JAX weights carried over by
 convert.params_from_jax and dropout off wherever the two packages are
@@ -13,7 +13,9 @@ compared (their generators differ).
 
 Tolerances: stacked plans and compact sims exact (the same numpy work),
 and so the step's device gather of them and a fit with the NP sims on the
-device against one whose host gathers them (the same float32 values);
+device against one whose host gathers them (the same float32 values); the
+device's gather plans equal to the host's element for element, and so a
+fit whose steps build them against one whose host does;
 fused fit vs JAX's fused fit, metrics rtol 1e-4 and parameters atol 1e-5
 after 3 epochs (fp32 steps summed in another order by another library);
 fused vs streaming in the port, atol 1e-5 (the JAX test's; the same
@@ -36,6 +38,7 @@ from subgnn_tpu.train.loop import Trainer as JTrainer
 
 from subgnn_tpu_torch.bench import build_training_fixture
 from subgnn_tpu_torch.convert import params_from_jax
+from subgnn_tpu_torch.ops import embedding as E
 from subgnn_tpu_torch.train import loop as L
 from subgnn_tpu_torch.train import plans as tplans
 from subgnn_tpu_torch.train import sims as tsims
@@ -107,6 +110,66 @@ def test_epoch_plans_match_jax(neighborhood):
             assert tp[k].n_rows == jp[k].n_rows == n_rows
         assert tb.tiles == jb.tiles
     assert tp["cc_plan"].pos.shape[0] == 2
+
+
+def _plan_ids(case, rng):
+    """(ids, n_rows) of one case of the device plan test."""
+    if case == "ppi_bp_neigh":
+        # the neighbourhood plan's ids at ppi_bp's shape, ~87% PAD
+        n_rows = 17080
+        ids = rng.integers(1, n_rows, (2, 64, 59, 45))
+        ids[rng.random(ids.shape) < 0.873] = 0
+    elif case == "hub_in_a_middle_block":
+        n_rows = 1000
+        ids = rng.integers(0, n_rows, (8, 300))
+        ids[rng.random(ids.shape) < 0.6] = 517
+    elif case == "blocks_of_0_511_512_513_1024":
+        n_rows = 5 * E.TABLE_BLOCK
+        ids = np.concatenate([
+            b * E.TABLE_BLOCK + rng.integers(0, E.TABLE_BLOCK, c)
+            for b, c in ((1, 511), (2, 512), (3, 513), (4, 1024))])
+        ids = rng.permutation(ids)
+    elif case == "one_block":
+        n_rows = 1000
+        ids = 3 * E.TABLE_BLOCK + rng.integers(0, E.TABLE_BLOCK, (4, 777))
+    elif case == "at_the_bound":
+        # 1 mod 512 ids in every block: the bound is reached exactly
+        n_rows = 4 * E.TABLE_BLOCK
+        ids = rng.permutation(np.concatenate([
+            b * E.TABLE_BLOCK + rng.integers(0, E.TABLE_BLOCK, c)
+            for b, c in enumerate((1, 513, 1025, 1))]))
+    else:                                     # "rows_not_a_multiple_of_128"
+        n_rows = 300
+        ids = rng.integers(0, n_rows, (64, 3, 7))
+    return ids, n_rows
+
+
+@pytest.mark.parametrize("case", [
+    "ppi_bp_neigh", "hub_in_a_middle_block", "blocks_of_0_511_512_513_1024",
+    "one_block", "at_the_bound", "rows_not_a_multiple_of_128"])
+def test_device_gather_plan_equals_the_host_plan(case):
+    """The plan a fused step builds (tplans.device_gather_plan) equals
+    make_gather_plan's at plan_tiles_bound tiles element for element, and
+    the table gradient over the two is bit-equal; no case needs more tiles
+    than the bound, and the bound is reached where every block holds 1 mod
+    512 ids."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    ids, n_rows = _plan_ids(case, rng)
+    bound = tplans.plan_tiles_bound(ids.size, n_rows)
+    need = E.tiles_needed(ids, n_rows)
+    assert need <= bound
+    if case == "at_the_bound":
+        assert need == bound == 7
+    host = E.make_gather_plan(ids, n_rows, n_tiles=bound)
+    dev = tplans.device_gather_plan(torch.as_tensor(ids), n_rows)
+    assert dev.n_rows == host.n_rows == n_rows
+    for name in ("pos", "local", "block"):
+        got, want = getattr(dev, name), getattr(host, name)
+        assert got.dtype == torch.int32 and got.is_contiguous(), name
+        assert torch.equal(got, want), name
+    g = torch.as_tensor(rng.normal(size=(ids.size, 4)), dtype=torch.float32)
+    assert torch.equal(E.segment_matmul_torch(g, dev),
+                       E.segment_matmul_torch(g, host))
 
 
 def test_epoch_compact_sims_match_jax():
@@ -217,6 +280,54 @@ def test_resident_sims_fit_equals_host_sims_fit(case, monkeypatch):
     assert int(d.opt_state["count"]) == int(h.opt_state["count"])
 
 
+@pytest.mark.parametrize("case", ["fixed", "resample"])
+@pytest.mark.parametrize("channels", ["nsp", "s_only"])
+def test_device_plans_fit_equals_host_plans_fit(case, channels, monkeypatch):
+    """A fused fit whose train steps build their gather plans on the device
+    equals one whose host builds them (forced through plans_fit_on_device)
+    bit for bit: per-epoch metrics, parameters, state and Adam's moments.
+    `device_plans` counts every train replay of the first and none of the
+    second; `fit.schedule.plans` times the host's plans alone; the device
+    path captures one train step and one eval step."""
+    over = dict(max_epochs=EPOCHS, lin_dropout=0.2, batch_norm=True,
+                resample_anchor_patches=case == "resample")
+    if channels == "s_only":
+        over.update(use_neighborhood=False, use_position=False)
+    model, hp, params, state, data, anchors, _ = build_training_fixture(
+        hp_overrides=over, device="cpu")
+    hook = _resampled(anchors) if case == "resample" else None
+    runs = {}
+    for path in ("device", "host"):
+        with monkeypatch.context() as m:
+            if path == "host":
+                m.setattr(L, "plans_fit_on_device", lambda row_range: False)
+            tr = runs[path] = Trainer(model, hp, device="cpu")
+            tr.fit(params, state, data["train"], data["val"], anchors,
+                   seed=0, on_epoch_end=hook, log_fn=None)
+    d, h = runs["device"], runs["host"]
+    assert d.fused and h.fused
+    assert d.plans_on_device is True and h.plans_on_device is False
+    assert d.fused_captures == 2
+    n_train = len(data["train"]) // hp.batch_size
+    for epoch in range(EPOCHS):
+        assert d.spans.counters[epoch]["device_plans"] == n_train
+        assert h.spans.counters[epoch]["device_plans"] == 0
+        if epoch < EPOCHS - 1 or case == "resample":
+            names = {r[0] for r in h.spans.rows(epoch)}
+            assert "fit.schedule.plans" in names
+        names = {r[0] for r in d.spans.rows(epoch)}
+        assert "fit.schedule.plans" not in names
+    for md, mh in zip(d.metric_scores, h.metric_scores):
+        for k, v in mh.items():
+            if k != "epoch_time_s" and k != "train_edges_per_s":
+                assert md[k] == v, k
+    _assert_trees(d.params, h.params)
+    _assert_trees(d.state, h.state)
+    for k in ("mu", "nu"):
+        _assert_trees(d.opt_state[k], h.opt_state[k])
+    assert int(d.opt_state["count"]) == int(h.opt_state["count"])
+
+
 class _Mesh:
     def __init__(self, n_node):
         self.sharded = n_node > 1
@@ -305,9 +416,11 @@ def test_fused_fit_matches_streaming_fit(case, monkeypatch):
 
 
 def test_fused_fit_recaptures_when_the_plans_grow(monkeypatch):
-    """A growth of the plans' tile count between epochs makes a new train
-    step (a new capture on the card); the eval step stays. The padding
-    tiles add nothing, so the run equals one without growth."""
+    """Where the host builds the plans (the node axis's rule, forced), a
+    growth of their tile count between epochs makes a new train step (a
+    new capture on the card); the eval step stays. The padding tiles add
+    nothing, so the run equals one without growth."""
+    monkeypatch.setattr(L, "plans_fit_on_device", lambda row_range: False)
     model, hp, params, state, data, anchors, _ = build_training_fixture(
         hp_overrides=dict(max_epochs=EPOCHS), device="cpu")
     plain = Trainer(model, hp, device="cpu")
@@ -324,6 +437,7 @@ def test_fused_fit_recaptures_when_the_plans_grow(monkeypatch):
     grown = Trainer(model, hp, device="cpu")
     grown.fit(params, state, data["train"], data["val"], anchors, seed=0,
               log_fn=None)
+    assert plain.plans_on_device is grown.plans_on_device is False
     assert plain.fused_captures == 2
     assert grown.fused_captures == EPOCHS + 1
     _assert_trees(plain.params, grown.params, atol=1e-6, rtol=0)
@@ -358,6 +472,9 @@ def test_mode_selection_matches_jax(case, monkeypatch):
     assert ttr.fused == (case in ("default", "compact_off"))
     assert ttr.compact_sims == jtr.compact_sims
     assert ttr.sims_on_device is (case == "default")
+    assert ttr.plans_on_device is ttr.fused
+    assert L.plans_fit_on_device(None) is True
+    assert L.plans_fit_on_device((0, 64)) is False
 
 
 def test_fused_resume_continues_the_uninterrupted_run(tmp_path):

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels against their plain PyTorch versions, on the
+"""Hand-written CUDA kernels against their plain PyTorch versions, and the
+fused step's device gather plans captured without a host sync, on the
 card. Every test here needs a CUDA device and skips without one; the file
 imports no JAX, so it runs on the GPU machine as
 
@@ -408,6 +409,49 @@ def test_segment_matmul_kernel_captured_and_replayed(cuda, dtype):
         assert (err <= _row_tol(gi, ids, n_rows + 8, ref)).all(), i
     assert graph.captures == 1 and graph.graph is not None
     assert not any(t.any() for t in E._tickets.values())  # left 0
+
+
+@pytest.mark.gpu
+def test_device_gather_plan_captured_without_a_host_sync(cuda):
+    """The gather plans a fused train step builds on the card
+    (train/plans.py:device_gather_plan) inside a StepGraph: call 1 eager,
+    call 2 captured and replayed, calls 3-4 replays, each on new ids copied
+    into the step's static buffer, under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any host
+    sync. Each call's plan equals make_gather_plan's at plan_tiles_bound
+    tiles, at ppi_bp's neighbourhood shape (PAD shares 0-95%)."""
+    from subgnn_tpu_torch.ops import embedding as E
+    from subgnn_tpu_torch.train.graphs import StepGraph
+    from subgnn_tpu_torch.train.plans import (device_gather_plan,
+                                              plan_tiles_bound)
+    rng = np.random.default_rng(12)
+    n_rows, shape = 17080, (2, 64, 59, 45)
+    draws = []
+    for pad in (0.873, 0.5, 0.95, 0.0):
+        ids = rng.integers(1, n_rows, shape)
+        ids[rng.random(shape) < pad] = 0
+        draws.append(ids)
+    ids_buf = torch.zeros(shape, dtype=torch.int64, device=cuda)
+    out = {}
+
+    def step():
+        out["plan"] = device_gather_plan(ids_buf, n_rows)
+
+    graph = StepGraph(step, cuda)
+    bound = plan_tiles_bound(ids_buf.numel(), n_rows)
+    for i, ids in enumerate(draws):
+        ids_buf.copy_(torch.as_tensor(ids, device=cuda))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = E.make_gather_plan(ids, n_rows, n_tiles=bound)
+        for name in ("pos", "local", "block"):
+            assert torch.equal(getattr(out["plan"], name).cpu(),
+                               getattr(want, name)), (i, name)
+    assert graph.captures == 1 and graph.graph is not None
 
 
 @pytest.mark.gpu

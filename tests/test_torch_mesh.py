@@ -93,7 +93,8 @@ def _fit(over, n_train=16, n_val=8, streaming=False, mesh=None,
     return {"metrics": [{k: m[k] for k in METRIC_KEYS + ("epoch",)}
                         for m in tr.metric_scores],
             "params": to_numpy(whole), "state": to_numpy(tr.state),
-            "fused": tr.fused, "steps": tr.global_step, "held": tr.held,
+            "fused": tr.fused, "plans_on_device": tr.plans_on_device,
+            "steps": tr.global_step, "held": tr.held,
             "grad_norms": tr._grad_norms, **counts}
 
 
@@ -294,6 +295,9 @@ def test_mesh_fit_matches_one_process(spawned, job, over, n_train,
     ranks = spawned[job]
     one = _fit(over, n_train=n_train, streaming=streaming)
     assert ranks[0]["fused"] is one["fused"] is (job == "fused")
+    # a data axis's fused steps build their own plans, as one process's
+    assert ranks[0]["plans_on_device"] is one["plans_on_device"] is (
+        job == "fused")
     assert ranks[0]["steps"] == one["steps"]
     _assert_ranks_agree(ranks)
     _assert_metrics(ranks[0]["metrics"], one["metrics"], rtol=1e-4)

@@ -281,6 +281,9 @@ def test_node_mesh_fit_matches_one_process(spawned, shape, job):
     one = _one(job)
     over, streaming, compact = CASES[job]
     assert ranks[0]["fused"] is one["fused"] is (not streaming)
+    # a node-axis rank's plans route its rows alone: the host builds them
+    assert ranks[0]["plans_on_device"] is False
+    assert one["plans_on_device"] is (not streaming)
     assert ranks[0]["steps"] == one["steps"]
     _assert_ranks_agree(ranks)
     _assert_metrics(ranks[0]["metrics"], one["metrics"], rtol=1e-4)

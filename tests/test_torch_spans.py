@@ -6,8 +6,9 @@ come from them, and that Adam clips a gradient shared by two leaves once.
 Fits run the training fixture (`build_training_fixture`: 16 train and 8 val
 subgraphs, batch 8) in the fused mode, whose CPU path calls the steps where
 the card replays their graphs and keeps the NP sims on the device, the steps
-gathering their compact sims (no `fit.schedule.sims`); predict runs the mini
-fixture's pipeline."""
+gathering their compact sims (no `fit.schedule.sims`) and building their
+gather plans (no `fit.schedule.plans`); predict runs the mini fixture's
+pipeline."""
 import shutil
 from pathlib import Path
 
@@ -26,7 +27,6 @@ from subgnn_tpu_torch.train.runner import SubGNNPipeline
 EPOCHS = 3
 FUSED = {"fit.epoch": None, "fit.train": "fit.epoch",
          "fit.train.launch": "fit.train", "fit.schedule": "fit.train",
-         "fit.schedule.plans": "fit.schedule",
          "fit.schedule.put": "fit.schedule", "fit.train.wait": "fit.train",
          "fit.eval": "fit.epoch", "fit.eval.launch": "fit.eval",
          "fit.eval.wait": "fit.eval", "fit.eval.metrics": "fit.eval",
@@ -39,7 +39,8 @@ REPO = Path(__file__).parents[1]
 MINI = REPO / "tests" / "fixtures" / "mini_multilabel" / "mini"
 
 
-def _fit(monkeypatch=None, streaming=False, host_sims=False, **fit_kw):
+def _fit(monkeypatch=None, streaming=False, host_sims=False,
+         host_plans=False, **fit_kw):
     model, hp, params, state, data, anchors, _ = build_training_fixture(
         hp_overrides=dict(max_epochs=EPOCHS), device="cpu")
     tr = Trainer(model, hp, device="cpu")
@@ -48,6 +49,8 @@ def _fit(monkeypatch=None, streaming=False, host_sims=False, **fit_kw):
                             staticmethod(lambda d: 1 << 40))
     if host_sims:       # a device with no room for the NP sims
         monkeypatch.setattr(L, "_free_device_bytes", lambda device: 0)
+    if host_plans:      # the node axis's rule
+        monkeypatch.setattr(L, "plans_fit_on_device", lambda row_range: False)
     tr.fit(params, state, data["train"], data["val"], anchors, seed=0,
            log_fn=None, **fit_kw)
     assert tr.fused is not streaming
@@ -78,7 +81,8 @@ def test_fused_fit_records_each_span_once_per_epoch():
         n_train = len(data["train"]) // hp.batch_size
         n_val = -(-len(data["val"]) // hp.batch_size)
         assert rec.counters[epoch] == {"replays": n_train + n_val,
-                                       "device_sims": n_train + n_val}
+                                       "device_sims": n_train + n_val,
+                                       "device_plans": n_train}
         # 32 bytes a span
         assert len(rec.epochs[epoch]) * 8 == 32 * len(want)
     # the innermost spans cover the epochs
@@ -101,7 +105,28 @@ def test_host_gathered_sims_have_their_span(monkeypatch):
         n_train = len(data["train"]) // hp.batch_size
         n_val = -(-len(data["val"]) // hp.batch_size)
         assert rec.counters[epoch] == {"replays": n_train + n_val,
-                                       "device_sims": 0}
+                                       "device_sims": 0,
+                                       "device_plans": n_train}
+
+
+def test_host_built_plans_have_their_span(monkeypatch):
+    """Where the host builds the gather plans (the node axis's rule),
+    `fit.schedule.plans` times it inside `fit.schedule`, and no replay
+    counts as `device_plans`."""
+    tr, hp, data = _fit(monkeypatch, host_plans=True)
+    assert tr.plans_on_device is False and tr.sims_on_device is True
+    rec = tr.spans
+    for epoch in range(EPOCHS):
+        want = dict(FUSED, **{"fit.schedule.plans": "fit.schedule"})
+        if epoch == EPOCHS - 1:
+            want = {k: v for k, v in want.items()
+                    if not k.startswith("fit.schedule")}
+        _check_tree(rec, epoch, want)
+        n_train = len(data["train"]) // hp.batch_size
+        n_val = -(-len(data["val"]) // hp.batch_size)
+        assert rec.counters[epoch] == {"replays": n_train + n_val,
+                                       "device_sims": n_train + n_val,
+                                       "device_plans": 0}
 
 
 def test_streaming_fit_records_train_and_eval(monkeypatch):
